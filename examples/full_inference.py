@@ -1,9 +1,9 @@
 """Full ML inference demo: simulate, infer, and compare to the truth.
 
-Exercises the complete RAxML-shaped workflow on the TPU engine
+Exercises the complete RAxML-shaped workflow on the device engine
 (models/pipeline.run_inference): pattern compression, device-side JC
-distances + NJ starting tree, NNI topology search on the fused
-whole-tree kernel, branch-length/alpha fitting, distance-bootstrap
+distances + NJ starting tree, NNI topology search on the whole-tree
+likelihood, branch-length/alpha fitting, distance-bootstrap
 support, and SH-like aLRT branch support.
 
     python examples/full_inference.py [--taxa 12] [--sites 5000]
@@ -21,10 +21,6 @@ def main():
     ap.add_argument("--sites", type=int, default=5000)
     ap.add_argument("--bootstrap", type=int, default=20)
     args = ap.parse_args()
-
-    import jax
-    if jax.default_backend() != "tpu":
-        jax.config.update("jax_platforms", "cpu")
 
     from plf_tpu.models import (alrt_support, annotate_alrt, hky85,
                                 random_tree, rf_distance, run_inference,

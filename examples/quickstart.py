@@ -1,7 +1,7 @@
 """End-to-end demo: simulate -> compress -> likelihood -> optimise.
 
-Run on CPU:  python examples/quickstart.py          (auto CPU sizes)
-Run on TPU:  python examples/quickstart.py --tpu    (bigger sizes)
+Run on CPU:  python examples/quickstart.py          (small sizes)
+Run on GPU:  python examples/quickstart.py --gpu    (bigger sizes)
 """
 
 import argparse
@@ -17,17 +17,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--gpu", action="store_true")
     ap.add_argument("--taxa", type=int, default=12)
     ap.add_argument("--sites", type=int, default=None)
     args = ap.parse_args()
 
     import jax
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
-    on_tpu = jax.default_backend() == "tpu"
-    sites = args.sites or (1_000_000 if on_tpu else 2_000)
-    block = 4096 if on_tpu else 128
+    sites = args.sites or (1_000_000 if args.gpu else 2_000)
+    block = 4096 if args.gpu else 128
 
     from plf_tpu.config import PLFConfig
     from plf_tpu.io.alignment import compress_patterns
@@ -46,14 +45,15 @@ def main():
     patterns, wgt = compress_patterns(tips)
     print(f"site patterns: {sites} sites -> {patterns.shape[1]} patterns")
 
-    # 3. whole-tree likelihood on the fused kernel
-    cfg = PLFConfig(block_sites=block, interpret=not on_tpu)
+    # 3. whole-tree likelihood (the Triton kernel on a GPU)
+    cfg = PLFConfig(block_sites=block)
     pm = PhyloModel(tree, model, patterns, wgt=wgt, alpha=0.7, config=cfg)
     t0 = time.perf_counter()
     out = pm.log_likelihood()
     dt = time.perf_counter() - t0
     print(f"log-likelihood = {out.log_likelihood:.3f}  "
-          f"(scalers={out.scaler_total}, {dt*1e3:.0f} ms incl. compile)")
+          f"(path={out.method}, scalers={out.scaler_total}, "
+          f"{dt*1e3:.0f} ms incl. compile)")
 
     # 4. optimise branch lengths on device (gradients through the PLF)
     t_opt, ll0, ll1 = optimize_branch_lengths(pm, steps=40,

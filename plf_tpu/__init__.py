@@ -1,11 +1,12 @@
-"""plf_tpu — a TPU-native phylogenetic likelihood engine.
+"""plf_tpu — a phylogenetic likelihood engine in JAX for NVIDIA GPUs.
 
-A ground-up JAX/Pallas re-design of the capabilities of
+A ground-up JAX re-design of the capabilities of
 GeertRoks/AMD-Versal-phylogenetic-likelihood-function (an AMD Versal
-AIE/PL accelerator for the RAxML ``newviewGAMMA`` PLF kernel): fused
-single-kernel PLF on the TPU VPU, site-sharded multi-chip scaling via
-``shard_map``, substitution models + tree traversal, and the reference's
-verification/benchmark methodology as pytest/bench suites.
+AIE/PL accelerator for the RAxML ``newviewGAMMA`` PLF kernel): the PLF
+node and whole-tree traversals as compiled XLA programs, a whole-tree
+Pallas kernel through Triton for DNA, site-sharded multi-device scaling
+via ``shard_map``, substitution models, search and fitting, and the
+reference's verification methodology as pytest suites.
 """
 
 from .config import PLFConfig, Layout, AieType, Backend, DNA, PROTEIN

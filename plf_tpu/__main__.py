@@ -6,14 +6,13 @@ The reference's primary entry point is
 random inputs with a forced-underflow pattern, run the benchmark loop,
 verify against the CPU golden model, and print timing/bandwidth tables.
 
-TPU equivalent::
+Equivalent here::
 
     python -m plf_tpu [config-name] --sites N --calls K --instances I
-                      [--no-verify] [--csv out.csv] [--gen]
+                      [--no-verify] [--csv out.csv]
 
 The positional config-name plays the xclbin-filename role and is parsed
-with the same semantics (config.PLFConfig.from_name); ``--gen`` runs the
-compute-only probe instead (the host_gen flavor).
+with the same semantics (config.PLFConfig.from_name).
 
 Beyond the reference's benchmark driver, ``infer`` runs the full ML
 pipeline on a real alignment (models/pipeline.py)::
@@ -27,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 import numpy as np
 
@@ -224,6 +222,8 @@ def _parse_alignment(text: str, protein: bool = False):
 def main(argv=None):
     if argv is None:
         argv = sys.argv[1:]
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if argv and argv[0] == "infer":
         return infer_main(argv[1:])
     ap = argparse.ArgumentParser(prog="python -m plf_tpu")
@@ -238,8 +238,6 @@ def main(argv=None):
                          "Makefile:156-158)")
     ap.add_argument("--csv", default=None,
                     help="write per-call phase timings CSV")
-    ap.add_argument("--gen", action="store_true",
-                    help="compute-only probe (host_gen flavor)")
     ap.add_argument("--prerun-check", action="store_true",
                     help="interactive Y/n gate before running (the "
                          "reference's prerun_check, utils.cpp:9-39; "
@@ -263,41 +261,10 @@ def main(argv=None):
         cfg = __import__("dataclasses").replace(cfg,
                                                 block_sites=args.block)
     import jax
-    if jax.default_backend() != "tpu":
-        cfg = __import__("dataclasses").replace(cfg, interpret=True)
-        args.sites = min(args.sites, 2048)
 
     eng = PLFEngine(cfg)
     log(eng.describe(args.sites, args.calls))
     log(f"devices: {jax.devices()}")
-
-    if args.gen:
-        from .ops import layout as L
-        from .ops.plf_pallas import plf_pallas_gen
-        rng = np.random.default_rng(0)
-        lc = L.branch_to_lane_constants(
-            rng.random((cfg.categories, cfg.states, cfg.states),
-                       np.float32), cfg.states, cfg.categories)
-        rc = L.branch_to_lane_constants(
-            rng.random((cfg.categories, cfg.states, cfg.states),
-                       np.float32), cfg.states, cfg.categories)
-        ec = L.ev_to_lane_constants(
-            rng.random((cfg.states, cfg.states), np.float32),
-            cfg.states, cfg.categories)
-        import jax.numpy as jnp
-        nb = max(1, args.sites // cfg.block_sites)
-        t0 = time.perf_counter()
-        for _ in range(args.calls):
-            out = plf_pallas_gen(
-                jnp.asarray(lc), jnp.asarray(rc), jnp.asarray(ec),
-                states=cfg.states, categories=cfg.categories,
-                block_sites=cfg.block_sites, n_blocks=nb,
-                interpret=cfg.interpret)
-            float(np.asarray(out[0, :8]).sum())
-        dt = time.perf_counter() - t0
-        ns = nb * cfg.block_sites * 8 * args.calls
-        log(f"gen probe: {ns/dt/1e9:.3f} Gnode-sites/s")
-        return 0
 
     if args.prerun_check and sys.stdin.isatty():
         ans = input("Start the run? [Y/n] ").strip().lower()
@@ -321,12 +288,10 @@ def main(argv=None):
         x3_ref, sv_ref, inc_ref = plf_golden_native(
             *case[:5], case[5], states=cfg.states,
             categories=cfg.categories)
-        exact = jax.default_backend() == "tpu"
+        # The XLA op lets the compiler contract mul+add into FMA, so the
+        # bar is a few ULP (engine.PLFEngine.verify), not bit equality.
         got = np.asarray(x3).reshape(x3_ref.shape)
-        if exact:
-            neq = got != x3_ref
-        else:
-            neq = np.abs(got - x3_ref) > np.abs(x3_ref) * 5e-7 + 1e-37
+        neq = np.abs(got - x3_ref) > np.abs(x3_ref) * 5e-7 + 1e-37
         errors = int(neq.sum())
         for site, c, a in np.argwhere(neq)[:20]:
             log(f"ERROR: alignment data wrong at alignment {site}, "

@@ -1,4 +1,4 @@
-"""Configuration system for the TPU PLF engine.
+"""Configuration system for the PLF engine.
 
 The reference accelerator exposes one orthogonal config algebra spread over
 three binding times (Makefile variables composing the build name, the
@@ -7,19 +7,19 @@ xclbin *filename* re-parsed at runtime, and argv — see
 same axes collapse into a single runtime dataclass:
 
   =====================  ============================  =======================
-  Reference knob         Where it lived                TPU equivalent
+  Reference knob         Where it lived                Equivalent here
   =====================  ============================  =======================
   STATES (DNA/AA)        Makefile STATES               ``states``
-  WINDOW_SIZE            AIE window bytes              ``block_sites`` (Pallas
-                                                       grid block, in sites)
-  AIE_TYPE window/stream window re-send vs stream      (subsumed: Pallas grid
-                                                       pipelining; kept for
-                                                       the io compat layer)
+  WINDOW_SIZE            AIE window bytes              ``block_sites`` (site
+                                                       padding unit)
+  AIE_TYPE window/stream window re-send vs stream      (kept for the io
+                                                       compat layer)
   PLIO_LAYOUT Comb/Sep   header packing layout         ``layout`` (io packing)
   NUM_ACCELERATORS       9 parallel graph instances    ``instances`` (vmap) /
                                                        mesh data parallelism
   TARGET sw_emu/hw       emulation ladder              ``interpret`` (Pallas
-                                                       interpreter / CPU jax)
+                                                       interpreter for the
+                                                       whole-tree kernel)
   =====================  ============================  =======================
 
 The "filename-as-config" codec (`to_name`/`from_name`) round-trips a config
@@ -32,7 +32,6 @@ from __future__ import annotations
 import dataclasses
 import re
 from enum import Enum
-from typing import Optional
 
 
 class Layout(Enum):
@@ -57,8 +56,8 @@ class AieType(Enum):
 class Backend(Enum):
     """Which compute path evaluates the PLF."""
 
-    PALLAS = "pallas"   # fused VPU kernel, bit-exact to the golden model
-    XLA = "xla"         # jnp einsum path (fast generic fallback)
+    PALLAS = "pallas"   # the whole-tree Pallas kernel where it applies
+    XLA = "xla"         # XLA paths only
     REFERENCE = "reference"  # NumPy golden model (host; testing only)
 
 
@@ -68,33 +67,31 @@ class PLFConfig:
 
     states: int = 4            # 4 = DNA, 20 = protein
     categories: int = 4        # gamma rate categories
-    block_sites: int = 4096    # Pallas block (the "window size" analogue)
+    block_sites: int = 4096    # site padding unit (the "window size" analogue)
     instances: int = 1         # independent node-pairs batched per call
     layout: Layout = Layout.COMBINED
     aie_type: AieType = AieType.WINDOW
     backend: Backend = Backend.PALLAS
-    interpret: bool = False    # Pallas interpreter mode (the sw_emu analogue)
-    dtype: str = "float32"     # "float32" (exact) or "bfloat16" (fast mode)
+    interpret: bool = False    # run the whole-tree kernel in the Pallas
+                               # interpreter (the sw_emu analogue; tests)
+    dtype: str = "float32"     # CLV storage: "float32" or "bfloat16"
+                               # (fast mode; arithmetic stays fp32)
     tip_dtype: str = "int32"   # tip state-code storage: "int32" or "int8"
-                               # (codes are the whole-tree kernels' main
-                               # per-site HBM stream — int8 quarters it;
-                               # values fit easily: S + gap + ambiguity
-                               # <= 24 codes even for protein)
-    kernel_variant: str = "vpu"  # "vpu" (bit-exact elementwise), "mxu"
-                                 # (block-matmul on the systolic array,
-                                 # full-fp32 6-pass), "mxu_3x" (bf16x3
-                                 # MXU passes, ~fp32-grade), "mxu_bf16"
-                                 # (1-pass bf16 operands + fp32 accum —
-                                 # fastest for the compute-bound S>=20
-                                 # shapes; near-underflow sites can
-                                 # round negative through deep trees and
-                                 # land on the log floor — prefer
-                                 # mxu_3x for whole-tree traversals),
-                                 # or "auto" (vpu for small
-                                 # state counts, mxu where the
-                                 # (S*C, S*C) operators are big enough
-                                 # to win — measured 1.5x for protein
-                                 # S=20 on v5e, <=4 ULP)
+                               # (codes are the whole-tree kernel's only
+                               # per-site input stream — int8 quarters
+                               # it; values fit easily: S + gap +
+                               # ambiguity <= 24 codes even for protein)
+    kernel_variant: str = "vpu"  # how the node's stages 1 and 3 run
+                                 # (ops/plf_xla.py): "vpu" (element-wise
+                                 # sums in the golden model's order),
+                                 # "mxu" (dots at the F32_F32_F32 dot
+                                 # algorithm), "mxu_3x" (BF16_BF16_F32_X3,
+                                 # ~1e-5 relative), "mxu_bf16"
+                                 # (BF16_BF16_F32; near-underflow sites
+                                 # can round negative through deep trees
+                                 # and land on the log floor — forward
+                                 # only), or "auto" (vpu for small state
+                                 # counts, mxu_3x for S >= 20)
 
     def __post_init__(self):
         if self.states < 2:
@@ -102,9 +99,11 @@ class PLFConfig:
         if self.categories < 1:
             raise ValueError(f"categories must be >= 1, got {self.categories}")
         if self.block_sites < 128 or self.block_sites % 128:
+            # the padding unit: a multiple of 128 keeps every power-of-two
+            # kernel block up to 128 sites a divisor of the padded count
             raise ValueError(
-                f"block_sites must be a positive multiple of 128 (TPU lane "
-                f"width), got {self.block_sites}")
+                f"block_sites must be a positive multiple of 128, got "
+                f"{self.block_sites}")
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported dtype {self.dtype!r}")
         if self.tip_dtype not in ("int32", "int8"):
@@ -116,14 +115,12 @@ class PLFConfig:
 
     @property
     def resolved_kernel_variant(self) -> str:
-        """Resolve "auto": exact VPU form for small state counts (DNA);
-        MXU block-matmul form once the operators are large enough that
-        the systolic array beats the elementwise unroll (S >= ~16;
-        protein measured 1.5x, codon requires it — the VPU form unrolls
-        S concat/mul/add triples and is built for small S).  The 3-pass
-        bf16x3 split is the S>=20 default: fp32-grade ~1e-5 relative
-        accuracy at half the MXU passes of HIGHEST (hardware matrix
-        r03_protein.csv; set kernel_variant="mxu" for the 6-pass form)."""
+        """Resolve "auto": the element-wise form for small state counts
+        (DNA); the dot form at BF16_BF16_F32_X3 (~1e-5 relative, fp32
+        grade) once the (S, S) operators are large enough for the dots
+        to carry the work (S >= 20; the element-wise form unrolls S^2
+        products per category).  Set kernel_variant="mxu" for the full
+        fp32 dot algorithm."""
         if self.kernel_variant != "auto":
             return self.kernel_variant
         return "vpu" if self.states <= 8 else "mxu_3x"
@@ -135,14 +132,8 @@ class PLFConfig:
 
     @property
     def rows(self) -> int:
-        """Sublane rows of the canonical lane-major CLV layout."""
+        """Rows of the canonical lane-major CLV layout."""
         return self.states * self.categories
-
-    @property
-    def exact(self) -> bool:
-        """Whether this config targets bit-exact golden-model equality."""
-        return self.dtype == "float32" and self.backend in (
-            Backend.PALLAS, Backend.REFERENCE)
 
     # -- filename-as-config codec (reference parity) -------------------------
 
@@ -166,7 +157,7 @@ class PLFConfig:
         Reference names look like ``<app>_<pl>_128x<G><STATES><type>
         <windowbytes><layout>`` (README.md:94-99); their window sizes are
         BYTES and convert to sites via >>4 (include.h:156), then round to
-        the TPU lane multiple.  Both reference naming generations are
+        the 128-site padding unit.  Both reference naming generations are
         understood: Comb==1inEV -> COMBINED, Sep==2in -> SEPARATE
         (include.h:52-59; SURVEY.md §2.3).
         """

@@ -1,4 +1,4 @@
-"""High-level PLF engine: the TPU replacement for the reference host runtime.
+"""High-level PLF engine: the device replacement for the reference host runtime.
 
 The reference host program (app/src/host_mem.cpp:11-547) owns: config
 resolution, buffer geometry, instance partitioning, kernel dispatch, the
@@ -8,18 +8,16 @@ stateful :class:`PLFEngine` over pure jitted functions:
 * ``plf()``           — one PLF call (site batch -> parent CLV + scalers)
 * ``plf_batch()``     — N independent node-pairs at once (the reference's
                         9-accelerator multi-instance mode, vmapped)
-* ``verify()``        — golden-model comparison with the reference's exact
+* ``verify()``        — golden-model comparison with the reference's
                         float-equality criterion (host_mem.cpp:403-442)
 
 CLVs stay device-resident between calls (the reference pays PCIe per call —
-its own README names that the main bottleneck, README.md:204; HBM residency
-is the TPU-native fix).
+its own README names that the main bottleneck, README.md:204).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional
 
 import jax
@@ -27,9 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .config import Backend, PLFConfig
-from .ops import layout as L
-from .ops.plf_pallas import plf_pallas, plf_pallas_lane_major
-from .ops.plf_xla import plf_xla
+from .ops.plf_xla import plf_lane_major, plf_xla
 from .reference import plf_reference
 
 __all__ = ["PLFEngine", "PLFResult", "plf"]
@@ -126,20 +122,10 @@ class PLFEngine:
                 states=S, categories=C)
             return PLFResult(jnp.asarray(x3), jnp.asarray(sv.astype(np.int32)),
                              jnp.asarray(si, dtype=jnp.int32))
-        if cfg.backend is Backend.XLA:
-            x3, sv, si = plf_xla(jnp.asarray(x1), jnp.asarray(x2),
-                                 jnp.asarray(left), jnp.asarray(right),
-                                 jnp.asarray(ev), jnp.asarray(wgt),
-                                 states=S, categories=C)
-            return PLFResult(x3, sv, si)
-        x3, sv, si = plf_pallas(jnp.asarray(x1), jnp.asarray(x2),
-                                jnp.asarray(left), jnp.asarray(right),
-                                jnp.asarray(ev), jnp.asarray(wgt),
-                                states=S, categories=C,
-                                block_sites=cfg.block_sites,
-                                interpret=cfg.interpret,
-                                variant=cfg.resolved_kernel_variant,
-                                dtype=cfg.dtype)
+        x3, sv, si = plf_xla(x1, x2, left, right, ev, wgt, states=S,
+                             categories=C,
+                             variant=cfg.resolved_kernel_variant,
+                             dtype=cfg.dtype)
         return PLFResult(x3, sv, si)
 
     # -- multi-instance (the 9-accelerator analogue) -------------------------
@@ -151,8 +137,8 @@ class PLFEngine:
         ``(I, n, C*S)`` (or ``(I, n, C, S)``), ``left/right`` ``(I, C, S, S)``,
         ``ev`` ``(I, S, S)`` (the reference replicates one EV to all
         instances — pass broadcasted).  Equivalent of NUM_ACCELERATORS=9
-        (Makefile:29): on TPU the instances dimension is just batch work for
-        the same kernel grid, no separate hardware contexts needed.
+        (Makefile:29): the instances dimension is batch work for one
+        vmapped program, no separate hardware contexts needed.
         """
         cfg = self.config
         S, C = cfg.states, cfg.categories
@@ -161,67 +147,21 @@ class PLFEngine:
         n = x1.reshape(ni, -1, C, S).shape[1]
         if wgt is None:
             wgt = jnp.ones((ni, n), dtype=jnp.int32)
-        if cfg.backend is Backend.XLA or cfg.backend is Backend.REFERENCE:
-            fn = jax.vmap(
-                lambda a, b, l, r, e, w: plf_xla(a, b, l, r, e, w,
-                                                 states=S, categories=C))
-            x3, sv, si = fn(x1.reshape(ni, n, C, S),
-                            jnp.asarray(x2).reshape(ni, n, C, S),
-                            jnp.asarray(left), jnp.asarray(right),
-                            jnp.asarray(ev), jnp.asarray(wgt))
-            return PLFResult(x3, sv, si)
-        # Lane-major batched path: ONE layout transform for the whole
-        # batch (site-major (I, n, C, S) -> lane-major (I, S*C, n_pad))
-        # and a vmap of the lane-major kernel — instead of I separate
-        # site-major wrapper calls each paying its own pad + transpose
-        # (round-3 weakness; the reference's 9 instances share one
-        # data layout too, hls/src/mm2sleft_memDNAwindowComb.cpp:86-96).
-        variant = cfg.resolved_kernel_variant
-        n_pad = L.sites_padding(n, cfg.block_sites)
 
-        def batch_lane(x):
-            x = x.reshape(ni, n, C, S)
-            x = jnp.transpose(x, (0, 3, 2, 1)).reshape(ni, S * C, n)
-            return L.pad_to_multiple(x, cfg.block_sites, axis=-1)
+        def lane(x):        # (I, n, C, S) -> (I, S*C, n), row a*C + c
+            x = jnp.asarray(x).reshape(ni, n, C, S)
+            return jnp.transpose(x, (0, 3, 2, 1)).reshape(ni, S * C, n)
 
-        x1l = batch_lane(x1)
-        x2l = batch_lane(jnp.asarray(x2))
-        # batched operator encodings in pure jnp (trace-compatible, no
-        # per-instance host round-trips): lane form row k*C+c col a =
-        # b[c,k,a]; block form M[k*C+c, a*C+c] = b[c,k,a] via a
-        # constant-index scatter (layout.branch_to_block_matrix
-        # semantics, vectorised over the instance axis)
-        lm = jnp.asarray(left, jnp.float32).reshape(ni, C, S, S)
-        rm = jnp.asarray(right, jnp.float32).reshape(ni, C, S, S)
-        em = jnp.asarray(ev, jnp.float32).reshape(ni, S, S)  # [i, k, a]
-        if variant.startswith("mxu"):
-            cc, kk, aa = np.meshgrid(np.arange(C), np.arange(S),
-                                     np.arange(S), indexing="ij")
-            ridx = jnp.asarray(kk * C + cc)
-            cidx = jnp.asarray(aa * C + cc)
-            z = jnp.zeros((ni, S * C, S * C), jnp.float32)
-            lc = z.at[:, ridx, cidx].set(lm)
-            rc = z.at[:, ridx, cidx].set(rm)
-            # EV block: M[a*C+c, k*C+c] = ev[k, a]  (value at index
-            # position [c, k, a] is ev[k, a], broadcast over c)
-            eidx_r = jnp.asarray(aa * C + cc)
-            eidx_c = jnp.asarray(kk * C + cc)
-            ec = z.at[:, eidx_r, eidx_c].set(
-                jnp.broadcast_to(em[:, None, :, :], (ni, C, S, S)))
-        else:
-            lc = jnp.transpose(lm, (0, 2, 1, 3)).reshape(ni, S * C, S)
-            rc = jnp.transpose(rm, (0, 2, 1, 3)).reshape(ni, S * C, S)
-            ec = jnp.repeat(jnp.transpose(em, (0, 2, 1)), C, axis=1)
-        kern = functools.partial(
-            plf_pallas_lane_major, states=S, categories=C,
-            block_sites=cfg.block_sites, interpret=cfg.interpret,
-            variant=variant)
-        x3l, sv2 = jax.vmap(
-            lambda a, b, l, r, e: kern(a, b, l, r, e, jnp.int32(n)))(
-                x1l, x2l, lc, rc, ec)
-        x3 = jnp.transpose(
-            x3l.reshape(ni, S, C, n_pad)[..., :n], (0, 3, 2, 1))
-        sv = sv2[:, 0, :n]
+        def one(a, b, l, r, e):
+            return plf_lane_major(a, b, l, r, e, n, states=S, categories=C,
+                                  variant=cfg.resolved_kernel_variant)
+
+        x3l, sv = jax.vmap(one)(lane(x1).astype(cfg.dtype),
+                                lane(x2).astype(cfg.dtype),
+                                jnp.asarray(left, jnp.float32),
+                                jnp.asarray(right, jnp.float32),
+                                jnp.asarray(ev, jnp.float32))
+        x3 = jnp.transpose(x3l.reshape(ni, S, C, n), (0, 3, 2, 1))
         si = jnp.sum(sv * jnp.asarray(wgt, jnp.int32), axis=-1)
         return PLFResult(x3, sv, si)
 
@@ -232,13 +172,14 @@ class PLFEngine:
         """Golden-model check; returns (ok, n_errors, messages).
 
         ``exact=True`` applies the reference's bit-exact float equality
-        criterion (host_mem.cpp:423) — the default on TPU.  On CPU backends
-        XLA contracts mul+add to FMA, so the default there is a <=4-ULP
-        tolerance.
+        criterion (host_mem.cpp:423).  The default follows the path: the
+        NumPy golden backend is exact; the XLA paths let the compiler
+        contract mul+add into FMA (on the CPU and the GPU alike), so their
+        bar is a relative 5e-7 (a few ULP) per CLV element.
         """
         cfg = self.config
         if exact is None:
-            exact = jax.default_backend() == "tpu"
+            exact = cfg.backend is Backend.REFERENCE
         x3_ref, sv_ref, si_ref = plf_reference(
             np.asarray(x1), np.asarray(x2), np.asarray(left),
             np.asarray(right), np.asarray(ev),
@@ -257,11 +198,11 @@ class PLFEngine:
                 msgs.append(
                     f"ERROR: alignment data wrong at alignment {site}, "
                     f"probability {c * cfg.states + a}, "
-                    f"cpu!=tpu: {x3_ref[site, c, a]}!={got[site, c, a]}")
+                    f"cpu!=device: {x3_ref[site, c, a]}!={got[site, c, a]}")
         n_errors = int(neq.sum())
         si_got = int(np.asarray(result.scaler_increment))
         if si_got != si_ref:
-            msgs.append(f"ERROR: scalerIncrement wrong, cpu!=tpu: "
+            msgs.append(f"ERROR: scalerIncrement wrong, cpu!=device: "
                         f"{si_ref}!={si_got}")
             n_errors += 1
         return n_errors == 0, n_errors, msgs

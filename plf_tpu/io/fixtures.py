@@ -4,7 +4,7 @@ The reference ships its only checked-in test vectors as PLIO beat files
 (``aie/data/*.txt``, 4 floats per line = one 128-bit beat), bound per lane
 to the simulator graphs (aie/src/.../graph.h:38-44).  Lane ``c`` carries
 rate category ``c`` of every site.  We reconstruct full PLF inputs/outputs
-from them so the TPU engine can be validated against the exact vectors the
+from them so the engine can be validated against the exact vectors the
 hardware was.
 
 File roles (window mode, COMBINED layout — aie/data/):

@@ -14,7 +14,7 @@ prior (the per-category factors appear in both passes and normalisation
 handles the 1/C constants).
 
 This runs in STATE space with explicit per-category P matrices — the
-(n*C, S) @ (S, S) contractions are real matmuls (MXU-shaped), and the
+(n*C, S) @ (S, S) contractions are real matmuls, and the
 whole two-pass computation jits into one dispatch.  Per-node per-site
 max-normalisation keeps everything in fp32 range (posteriors are scale
 invariant).

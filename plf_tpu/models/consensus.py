@@ -7,7 +7,7 @@ tree, and per-branch support values mapped onto a reference topology —
 the standard Felsenstein-bootstrap outputs RAxML prints (the reference
 kernel's production context).  Distance-bootstrap replicates reuse the
 device-side pairwise counting (models/distance.py), so the O(L^2 * n)
-part of every replicate stays on the TPU and only O(L^3) NJ runs on
+part of every replicate stays on the device and only O(L^3) NJ runs on
 host.
 
 All functions identify splits by leaf NAME (frozenset of the side not

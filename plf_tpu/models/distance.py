@@ -3,10 +3,10 @@
 The reference accelerates one PLF node inside RAxML's inference loop;
 RAxML itself seeds that loop with a distance-based starting tree (its
 ``-t`` default builds a parsimony/NJ-style tree before any likelihood
-work).  This module supplies that front end for the TPU engine:
+work).  This module supplies that front end for the device engine:
 
 * the O(L^2 * n) pairwise mismatch counting runs ON DEVICE as two
-  (L, n) @ (n, L) matmuls — the one genuinely MXU-shaped computation in
+  (L, n) @ (n, L) matmuls — the one genuinely matmul-shaped computation in
   the whole pipeline (arithmetic intensity grows with L), batched over
   states via one-hot planes;
 * the O(L^3) Neighbor-Joining agglomeration runs on host NumPy (tiny,
@@ -52,9 +52,9 @@ def pairwise_mismatch(codes, wgt=None, states: int = 4):
 
     Implementation: per-state one-hot planes ``I_s`` give
     ``matches = sum_s I_s W I_s^T`` and ``total = V W V^T`` with
-    ``V = any_s I_s`` — (L, n)x(n, L) matmuls that tile directly onto
-    the MXU (fp32 HIGHEST so integer-valued counts stay exact up to
-    2^24, far above any real alignment length).
+    ``V = any_s I_s`` — (L, n)x(n, L) matmuls (fp32 HIGHEST so
+    integer-valued counts stay exact up to 2^24, far above any real
+    alignment length).
     """
     import jax
     import jax.numpy as jnp

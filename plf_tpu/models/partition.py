@@ -10,7 +10,7 @@ the host application; here it is a first-class driver on top of
 
 Total log-likelihood is the sum over partitions (sites are independent),
 so evaluation is embarrassingly parallel across partitions AND sites —
-each partition's fused traversal is one dispatch, and the per-partition
+each partition's traversal is one dispatch, and the per-partition
 likelihoods combine on host (or under one jit in the differentiable
 joint-fit path).
 """
@@ -82,7 +82,7 @@ class PartitionedModel:
     def log_likelihood_sharded(self, mesh=None) -> PartitionedResult:
         """Partitioned likelihood with every partition's site axis
         sharded over the device mesh: each partition runs the sharded
-        fused tree kernel (PhyloModel.log_likelihood_sharded — one psum
+        traversal (PhyloModel.log_likelihood_sharded — one psum
         per partition), totals sum on host.  Partitions are independent
         site ranges, so this is the full data-parallel evaluation of a
         production partitioned analysis (beyond-reference scope the
@@ -106,9 +106,8 @@ class PartitionedModel:
         with ``proportional=False`` scales are ignored entirely.
 
         With ``mesh`` each partition's likelihood (forward AND backward)
-        runs site-sharded under shard_map (the checkpointed whole-tree /
-        segmented VJP per shard) — the joint fit differentiates a fully
-        distributed objective.
+        runs site-sharded under shard_map — the joint fit differentiates
+        a fully distributed objective.
         """
         import jax
         import jax.numpy as jnp

@@ -1,17 +1,17 @@
 """End-to-end inference pipeline: alignment in, annotated ML tree out.
 
 The reference accelerates one kernel inside RAxML; this module is the
-RAxML-shaped driver around the TPU engine so the framework is usable as
+RAxML-shaped workflow around the device engine so the framework is usable as
 a complete tool:
 
     alignment -> pattern compression -> NJ starting tree (device
     distances) -> ML branch lengths + model parameters (+I/+G) ->
     NNI/SPR topology search -> bootstrap support -> annotated newick.
 
-Every likelihood evaluation inside the loop runs the fused whole-tree
-Pallas kernel (ops/plf_tree_pallas) when the tree fits VMEM, the
-register-machine kernel otherwise; distances run as MXU matmuls
-(models/distance).  The pipeline is deliberately plain host Python —
+Every likelihood evaluation inside the loop runs the whole-tree
+traversal (models/phylo: the Triton kernel for DNA on a GPU, the XLA
+traversal otherwise); a search round scores its neighbourhood in one
+batched program; distances run as device matmuls (models/distance).  The pipeline is deliberately plain host Python —
 data-dependent control flow (which topology wins) must not be traced.
 """
 
@@ -60,7 +60,7 @@ def run_inference(codes: np.ndarray,
                   seed: int = 0,
                   progress: Optional[Callable[[str], None]] = None
                   ) -> InferenceResult:
-    """Full ML phylogenetic inference on the TPU engine.
+    """Full ML phylogenetic inference on the device engine.
 
     Args:
       codes: (n_taxa, n_sites) int state codes (gaps/ambiguous >= S).

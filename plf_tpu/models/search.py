@@ -1,8 +1,8 @@
-"""Tree topology search: NNI / SPR hill climbing on the fused likelihood.
+"""Tree topology search: NNI / SPR hill climbing on the tree likelihood.
 
 The reference accelerates one PLF node update; the application it plugs
 into is maximum-likelihood tree *search* (RAxML).  This module supplies a
-compact version of that loop on top of the TPU engine:
+compact version of that loop on top of the device engine:
 
 * :func:`nni_neighbors` — all nearest-neighbour-interchange rearrangements
   of a rooted binary tree (each internal edge yields two alternative
@@ -189,7 +189,7 @@ def _hill_climb(tree: Tree, model: SubstitutionModel, tip_states,
                 ) -> SearchResult:
     """Greedy hill climbing over an arbitrary move set.
 
-    Evaluates every neighbour per round with the fused tree kernel and
+    Evaluates every neighbour per round in one batched program and
     moves to the best strictly-improving topology until none improves or
     ``max_rounds`` is reached.  ``on_round(round, result)`` fires after
     every round (checkpoint hook).
@@ -212,52 +212,22 @@ def _hill_climb(tree: Tree, model: SubstitutionModel, tip_states,
         return pm.log_likelihood().log_likelihood
 
     def score_all(cands) -> np.ndarray:
-        """Score a whole neighbourhood in one device dispatch.
-
-        Uses phylo.batch_log_likelihood (register-machine tree kernel
-        with runtime schedules): ONE compile per tree-shape class for
-        the entire search instead of one XLA compile per candidate
-        topology per round.  Falls back to per-candidate evaluation for
-        non-Pallas backends.
-        """
-        from ..config import Backend
+        """Score a whole neighbourhood in one device program
+        (phylo.batch_log_likelihood: the schedules run as data, so the
+        search compiles once per tree-shape class instead of once per
+        candidate topology per round)."""
+        if len(cands) == 1:
+            return np.asarray([ll_of(cands[0])])
+        from . import phylo
         pm0 = PhyloModel(cands[0], model, tip_states, wgt=wgt,
                          alpha=alpha, config=config)
-        if pm0.config.backend is Backend.XLA or len(cands) == 1:
-            return np.asarray([ll_of(c) for c in cands])
-        from .phylo import (batch_log_likelihood,
-                            batch_log_likelihood_segmented)
         # share pm0's device arrays (codes/weights/tables): hundreds of
         # candidates per round must not re-upload the alignment
         pms = [pm0] + [PhyloModel(c, model, tip_states, wgt=wgt,
                                   alpha=alpha, config=pm0.config,
                                   share_device_from=pm0)
                        for c in cands[1:]]
-        # Engine crossover: beyond ~160 edges the register-machine
-        # batch's lax.map COMPILE time explodes (measured >23 min at
-        # 256 taxa x 508 candidates on the remote compiler) long before
-        # its VMEM arena overflows; the batched SEGMENTED scorer
-        # compiles in minutes and ran 3.2x faster than per-candidate
-        # there (benchmarks/results/r04_search.txt).
-        if len(pm0.schedule) > 160:
-            try:
-                return batch_log_likelihood_segmented(pms)
-            except ValueError as e:
-                if "does not fit" not in str(e):
-                    raise   # programming errors must not degrade silently
-                return np.asarray([ll_of(c) for c in cands])
-        try:
-            return batch_log_likelihood(pms)
-        except ValueError as e:
-            if "does not fit" not in str(e):
-                raise   # programming errors must not degrade silently
-            # batched register-machine arena does not fit VMEM — the
-            # batched SEGMENTED engine, then per-candidate as a last
-            # resort
-            try:
-                return batch_log_likelihood_segmented(pms)
-            except ValueError:
-                return np.asarray([ll_of(c) for c in cands])
+        return phylo.batch_log_likelihood(pms)
 
     current = tree
     best_ll = ll_of(current)

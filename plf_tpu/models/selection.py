@@ -4,7 +4,7 @@ The reference computes one PLF under a caller-supplied model
 (/root/reference/app/src/plf.cpp:8-68 takes whatever left/right/EV the
 host packed); choosing WHICH model those operators come from is the
 production step RAxML/ModelTest users run first.  This module is the
-ModelTest-NG analogue on the TPU engine: every candidate is fitted with
+ModelTest-NG analogue on the device engine: every candidate is fitted with
 the device-side optimisers (models/optimize.py) and scored with the
 standard information criteria.
 

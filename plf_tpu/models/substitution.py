@@ -158,8 +158,8 @@ def random_gtr(states: int = 4, seed: int = 0) -> SubstitutionModel:
 
 # ---------------------------------------------------------------------------
 # Codon models (61 sense codons, universal genetic code) — the hardest
-# stress of the S-generic kernel path (rows = 61*C; use the "mxu" kernel
-# variant or the XLA backend; the VPU tile/concat form is built for small S).
+# stress of the S-generic node op (rows = 61*C; the dot variants carry
+# it; the element-wise form unrolls S^2 products and is built for small S).
 # ---------------------------------------------------------------------------
 
 # NCBI translation table 1, codon order TTT,TTC,TTA,TTG,TCT,... (bases in

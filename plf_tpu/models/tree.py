@@ -5,7 +5,7 @@ context (RAxML's newview) walks a whole tree post-order, re-running the
 kernel at every internal node (SURVEY.md §0; README.md:1-8).  This module
 supplies that driver structure: a small immutable binary tree with newick
 parsing, a post-order evaluation schedule, and level grouping so
-independent nodes can be batched into one device dispatch (the TPU
+independent nodes can be batched into one device dispatch (the
 analogue of running the reference's 9 accelerator instances on different
 nodes concurrently, README.md:201-205 roadmap).
 """

@@ -1,6 +1,6 @@
 // Native runtime support for plf_tpu.
 //
-// TPU-native equivalent of the reference's C++ host-side compute/data
+// Equivalent of the reference's C++ host-side compute/data
 // plumbing (app/src/plf.cpp golden kernel; hls/src transpose + packing
 // semantics; app/src/host_mem.cpp buffer packing).  Exposed to Python via
 // ctypes (see plf_tpu/runtime/native.py).  Three roles:
@@ -208,13 +208,13 @@ void transpose_branch(const float* in, float* out, int states,
 // direct table lookup; underflow rescale by 2^32 per node).  This is
 // the tree-level analogue of the reference's host-side verification
 // loop (app/src/host_mem.cpp:403-442 recomputes every workload with
-// plf()) for the fused/segmented tree kernels.
+// plf()) for the whole-tree paths.
 //
 // codes:  (n_leaves, n) int32 tip-table column indices.
 // ttab:   (S, ncode) eigen-coordinate tip table ([a][col]).
 // lsrc/rsrc/oslot: (E,) UNIFIED arena coordinates — slots [0, n_leaves)
-//         are tips, the rest register slots (compile_register_schedule
-//         + n_leaves offset, as in ops/plf_tree_pallas.py).
+//         are tips, the rest register slots (the slots of
+//         ops/schedule.compile_register_schedule offset by n_leaves).
 // lbr/rbr: (E, C, S, S) branch factors [e][c][k][a].
 // ev:     (S, S) [k][a].   rr: (S*C) root rows, row = a*C + c.
 // lik/sc: (n,) per-site likelihood and rescale counts.

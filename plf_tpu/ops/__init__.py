@@ -1,3 +1,2 @@
-from .plf_xla import plf_xla
-from .plf_pallas import plf_pallas, plf_pallas_lane_major
+from .plf_xla import plf_xla, plf_lane_major, plf_node
 from . import layout

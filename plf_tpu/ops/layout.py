@@ -7,19 +7,19 @@ Two layouts exist in the framework:
   user-facing import/export format.
 
 * **lane-major** ``(states*categories, n)`` with row index
-  ``r = state*categories + cat`` — the canonical on-device layout.  Sites ride
-  the TPU's 128-wide vector lanes, and the fused Pallas kernel's three stages
-  each touch *contiguous* 4-row sublane slices (see ops/plf_pallas.py).  This
-  is the TPU-native analogue of the reference PL's 4-lane split of each
-  512-bit site record across PLIO streams (hls/src/
-  mm2sleft_memDNAwindowComb.cpp:86-96) — there a lane owned one rate
-  category; here a sublane row owns one (state, category) pair and the lane
-  axis owns sites.
+  ``r = state*categories + cat`` — the canonical on-device layout.  Sites
+  are the minor (contiguous) axis, so every stage of the node op streams
+  whole rows of sites and needs no transpose; viewed as ``(S, C, n)`` the
+  stages are broadcasts over sites (ops/plf_xla.py).  This is the analogue
+  of the reference PL's 4-lane split of each 512-bit site record across
+  PLIO streams (hls/src/mm2sleft_memDNAwindowComb.cpp:86-96) — there a lane
+  owned one rate category; here a row owns one (state, category) pair and
+  the minor axis owns sites.
 
-Padding: site counts are padded up to a multiple of the Pallas block (the
+Padding: site counts are padded up to a multiple of ``block_sites`` (the
 "window" analogue) exactly like the reference pads the last instance /
-window (app/src/include.h:181-195, 262-266); padded sites are masked out of
-the scaler stream in-kernel (s2mm_memDNAwindowComb.cpp:79 semantics).
+window (app/src/include.h:181-195, 262-266); padded sites never count a
+rescale (s2mm_memDNAwindowComb.cpp:79 semantics).
 """
 
 from __future__ import annotations
@@ -30,8 +30,6 @@ import numpy as np
 __all__ = [
     "cdiv", "pad_to_multiple", "sites_padding",
     "to_lane_major", "from_lane_major",
-    "branch_to_lane_constants", "ev_to_lane_constants",
-    "branch_to_block_matrix", "ev_to_block_matrix",
 ]
 
 
@@ -78,79 +76,3 @@ def from_lane_major(x, states: int = 4, categories: int = 4, n=None):
     if n is not None:
         y = y[:n]
     return y
-
-
-def branch_to_lane_constants(branch, states: int = 4, categories: int = 4):
-    """Expand a branch matrix into the kernel's per-source-state columns.
-
-    ``branch`` has shape ``(C, S, S)`` indexed ``[c, k, a]`` (RAxML flat
-    layout ``left[c*S*S + k*S + a]``).  Returns ``(S*C, S)`` fp32 where
-    column ``a`` holds the (16,1)-broadcastable vector
-    ``Lc[k*C + c, a] = branch[c, k, a]`` consumed by kernel stage 1
-    (row order of the intermediate ``ump``/product arrays is ``k*C + c``).
-
-    This is the TPU analogue of the PL-side branch-block *transpose*
-    performed before streaming (hls/src/transpose.cpp:6-24): a one-time,
-    tiny data re-arrangement outside the hot loop so the kernel does only
-    contiguous broadcasts.
-    """
-    xp = np if isinstance(branch, np.ndarray) else jnp
-    S, C = states, categories
-    b = branch.reshape(C, S, S)         # [c, k, a]
-    b = xp.transpose(b, (1, 0, 2))      # [k, c, a]
-    out = b.reshape(S * C, S)           # row = k*C + c, col = a
-    return out.astype(jnp.float32 if xp is jnp else np.float32)
-
-
-def branch_to_block_matrix(branch, states: int = 4, categories: int = 4):
-    """Branch matrix as a (rows, rows) block-structured operator (MXU path).
-
-    With lane-major CLV rows ``r_in = a*C + c`` and intermediate rows
-    ``r_out = k*C + c``, stage 1 is exactly the matmul ``ump = M @ x``
-    where ``M[k*C+c, a*C+c] = branch[c, k, a]`` (zero across categories).
-    The whole PLF then runs as three tiny matmuls on the otherwise-idle
-    MXU — the same trick as the reference's ``aie::mmul`` kernels
-    (aie/src/.../mmul_branch.cpp:36-38) at TPU scale.
-    """
-    xp = np if isinstance(branch, np.ndarray) else jnp
-    S, C = states, categories
-    b = np.asarray(branch, np.float32).reshape(C, S, S)  # [c, k, a]
-    rows = S * C
-    m = np.zeros((rows, rows), np.float32)
-    for c in range(C):
-        m[np.arange(S)[:, None] * C + c,
-          np.arange(S)[None, :] * C + c] = b[c]          # [k, a] block
-    if xp is jnp:
-        return jnp.asarray(m)
-    return m
-
-
-def ev_to_block_matrix(ev, states: int = 4, categories: int = 4):
-    """Eigenvector matrix as the stage-3 (rows, rows) operator:
-    ``M[a*C+c, k*C+c] = ev[k, a]``."""
-    S, C = states, categories
-    e = np.asarray(ev, np.float32).reshape(S, S)         # [k, a]
-    rows = S * C
-    m = np.zeros((rows, rows), np.float32)
-    for c in range(C):
-        m[np.arange(S)[:, None] * C + c,
-          np.arange(S)[None, :] * C + c] = e.T           # [a, k] block
-    if not isinstance(ev, np.ndarray):
-        return jnp.asarray(m)
-    return m
-
-
-def ev_to_lane_constants(ev, states: int = 4, categories: int = 4):
-    """Expand the eigenvector matrix for kernel stage 3.
-
-    ``ev`` has shape ``(S, S)`` indexed ``[k, a]``.  Returns ``(S*C, S)``
-    where column ``k`` holds ``Ec[a*C + c, k] = ev[k, a]`` (independent of
-    ``c`` — each value is replicated across the C category rows), matching
-    the output row order ``a*C + c`` of the canonical lane-major layout.
-    """
-    xp = np if isinstance(ev, np.ndarray) else jnp
-    S, C = states, categories
-    e = ev.reshape(S, S)                             # [k, a]
-    e = xp.transpose(e, (1, 0))                      # [a, k]
-    e = xp.repeat(e, C, axis=0)                      # rows a*C + c
-    return e.astype(jnp.float32 if xp is jnp else np.float32)

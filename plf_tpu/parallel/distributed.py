@@ -2,13 +2,13 @@
 
 The reference is single-card with no inter-node distribution — its README
 names multi-instance site-sharding as the roadmap (README.md:201-205).
-For a TPU pod the scale-out story is:
+The scale-out story is:
 
-* intra-slice: shard the site axis over ICI (parallel/sharding.py works
-  unchanged — the mesh just spans all slice devices);
-* multi-host: ``jax.distributed.initialize`` + a global mesh whose site
-  axis crosses hosts over DCN.  The PLF is pointwise over sites, so the
-  only cross-host traffic is the scalar psum of weighted scaler counts /
+* one host: shard the site axis over its cards (parallel/sharding.py —
+  the mesh spans all local devices, which NVLink joins all to all);
+* several hosts: ``jax.distributed.initialize`` + a global mesh whose
+  site axis crosses hosts.  The PLF is pointwise over sites, so the only
+  cross-host traffic is the scalar psum of weighted scaler counts /
   log-likelihood partials — weak scaling is communication-trivial.
 
 Includes fail-fast mesh/shape validation (the reference has no failure
@@ -33,8 +33,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     """Initialise jax.distributed for a multi-host run.
 
     On single-host (or when already initialised) this is a no-op
-    returning False.  In managed TPU environments (GKE/TPU VM) the
-    arguments are auto-detected; pass them explicitly elsewhere.
+    returning False.  Where no cluster manager announces the job, pass
+    ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id`` explicitly.
     """
     if num_processes is not None and num_processes <= 1:
         return False
@@ -60,7 +61,7 @@ def global_site_mesh(axis: str = "sites",
 
     With N hosts x D local devices the mesh is (N*D,); JAX places each
     host's shard on its local devices, so CLV site shards never cross
-    DCN — only the psum scalars do.
+    hosts — only the psum scalars do.
     """
     devs = list(devices) if devices is not None else jax.devices()
     return Mesh(np.asarray(devs), (axis,))
@@ -76,13 +77,15 @@ def validate_site_workload(mesh: Mesh, n_sites: int, block_sites: int,
     if n_sites <= 0:
         raise ValueError(f"n_sites must be positive, got {n_sites}")
     if block_sites % 128:
-        raise ValueError(f"block_sites {block_sites} not a lane multiple")
+        raise ValueError(
+            f"block_sites {block_sites} not a multiple of 128 (the site "
+            "padding unit, config.PLFConfig)")
     unit = ndev * block_sites
     sites_per_dev = -(-n_sites // ndev)
     if sites_per_dev < 128:
         raise ValueError(
             f"{n_sites} sites over {ndev} devices leaves {sites_per_dev} "
-            "sites/device (< one 128-lane tile); use fewer devices")
+            "sites/device (< 128); use fewer devices")
     # All processes must agree on the device count they contribute.
     local = len([d for d in mesh.devices.flat
                  if d.process_index == jax.process_index()])

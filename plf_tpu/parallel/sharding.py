@@ -7,8 +7,9 @@ EV+branch header to every instance (host_mem.cpp:229-241), and reducing the
 weighted scaler counts on the host (host_mem.cpp:385-388).  Its README
 names multi-instance site-sharding the roadmap item (README.md:201-205).
 
-TPU-native version: a 1-D ``sites`` mesh axis (ICI within a slice, DCN
-across hosts), ``shard_map`` over per-device lane-major CLV shards,
+Here: a 1-D ``sites`` mesh axis over all devices (every card of a host
+reaches every other, so the mesh follows the algorithm alone),
+``shard_map`` over per-device lane-major CLV shards,
 replicated branch/EV constants, and a ``psum`` for the scaler reduction.
 The site axis is pointwise — no halo, no resharding — so weak scaling is
 limited only by the psum latency (a single int32).
@@ -25,7 +26,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..ops import layout as L
-from ..ops.plf_pallas import plf_pallas_lane_major
+from ..ops.plf_xla import plf_lane_major
 
 __all__ = ["make_mesh", "shard_sites", "plf_sharded", "ShardedPLF"]
 
@@ -47,23 +48,25 @@ def shard_sites(mesh: Mesh, x, axis: str = "sites"):
 @functools.partial(
     jax.jit,
     static_argnames=("mesh", "states", "categories", "block_sites",
-                     "interpret", "axis"))
+                     "variant", "axis"))
 def plf_sharded(x1, x2, lc, rc, ec, wgt, n, *, mesh: Mesh, states: int = 4,
                 categories: int = 4, block_sites: int = 1024,
-                interpret: bool = False, axis: str = "sites"):
-    """Site-sharded fused PLF over a device mesh.
+                variant: str = "vpu", axis: str = "sites"):
+    """Site-sharded PLF over a device mesh.
 
     Args:
       x1, x2: ``(S*C, n_pad)`` lane-major CLVs; ``n_pad`` must be a multiple
         of ``n_devices * block_sites`` (use :func:`padded_sites`).
-      lc, rc, ec: kernel constants (replicated).
+      lc, rc, ec: ``(C, S, S)`` branch matrices and the ``(S, S)``
+        eigenvector matrix (replicated).
       wgt: ``(1, n_pad)`` int32 site weights (sharded with the sites; pad
         with zeros).
       n: scalar int32 count of valid sites (global).
 
     Returns:
-      ``(x3, scaler, scaler_increment)`` — x3/scaler sharded like the
-      inputs, scaler_increment a replicated scalar (psum over shards).
+      ``(x3, scaler, scaler_increment)`` — x3 ``(S*C, n_pad)`` and scaler
+      ``(n_pad,)`` sharded like the inputs, scaler_increment a replicated
+      scalar (psum over shards).
     """
     ndev = mesh.shape[axis]
     n_pad = x1.shape[-1]
@@ -75,29 +78,23 @@ def plf_sharded(x1, x2, lc, rc, ec, wgt, n, *, mesh: Mesh, states: int = 4,
 
     def local(x1s, x2s, lcs, rcs, ecs, wgts, ns):
         # Global->local site index offset for the padding/validity guard:
-        # this shard owns sites [rank*shard, (rank+1)*shard).  The kernel
-        # masks sites with local_idx >= n_local where n_local is the count
-        # of valid sites in this shard (reference last-instance padding,
-        # include.h:181-195).
+        # this shard owns sites [rank*shard, (rank+1)*shard).  Sites with
+        # local_idx >= n_local never count a rescale (reference
+        # last-instance padding, include.h:181-195).
         rank = jax.lax.axis_index(axis)
         n_local = jnp.clip(ns - rank * shard, 0, shard)
-        x3s, scs = plf_pallas_lane_major(
+        x3s, scs = plf_lane_major(
             x1s, x2s, lcs, rcs, ecs, n_local, states=states,
-            categories=categories, block_sites=block_sites,
-            interpret=interpret)
-        inc = jnp.sum(scs * wgts.astype(jnp.int32))
+            categories=categories, variant=variant)
+        inc = jnp.sum(scs * wgts[0].astype(jnp.int32))
         inc = jax.lax.psum(inc, axis)
         return x3s, scs, inc
 
     spec_data = P(None, axis)
-    spec_rep = P(None, None)
     fn = jax.shard_map(
         local, mesh=mesh,
-        in_specs=(spec_data, spec_data, spec_rep, spec_rep, spec_rep,
-                  spec_data, P()),
-        out_specs=(spec_data, spec_data, P()),
-        # Pallas calls don't declare varying-mesh-axes metadata yet.
-        check_vma=False,
+        in_specs=(spec_data, spec_data, P(), P(), P(), spec_data, P()),
+        out_specs=(spec_data, P(axis), P()),
     )
     return fn(x1, x2, lc, rc, ec, wgt, jnp.asarray(n, jnp.int32))
 
@@ -111,12 +108,12 @@ class ShardedPLF:
 
     def __init__(self, mesh: Optional[Mesh] = None, states: int = 4,
                  categories: int = 4, block_sites: int = 1024,
-                 interpret: bool = False):
+                 variant: str = "vpu"):
         self.mesh = mesh or make_mesh()
         self.states = states
         self.categories = categories
         self.block_sites = block_sites
-        self.interpret = interpret
+        self.variant = variant
 
     @property
     def n_devices(self) -> int:
@@ -143,15 +140,17 @@ class ShardedPLF:
         return shard_sites(self.mesh, jnp.asarray(w))
 
     def constants(self, left, right, ev):
+        """Branch and eigenvector matrices, replicated on every device."""
         S, C = self.states, self.categories
-        rep = NamedSharding(self.mesh, P(None, None))
-        lc = jax.device_put(L.branch_to_lane_constants(jnp.asarray(left), S, C), rep)
-        rc = jax.device_put(L.branch_to_lane_constants(jnp.asarray(right), S, C), rep)
-        ec = jax.device_put(L.ev_to_lane_constants(jnp.asarray(ev), S, C), rep)
-        return lc, rc, ec
+        rep = NamedSharding(self.mesh, P())
+
+        def put(x, shape):
+            return jax.device_put(np.asarray(x, np.float32).reshape(shape),
+                                  rep)
+        return put(left, (C, S, S)), put(right, (C, S, S)), put(ev, (S, S))
 
     def __call__(self, x1, x2, lc, rc, ec, wgt, n):
         return plf_sharded(
             x1, x2, lc, rc, ec, wgt, n, mesh=self.mesh, states=self.states,
             categories=self.categories, block_sites=self.block_sites,
-            interpret=self.interpret)
+            variant=self.variant)

@@ -3,9 +3,11 @@
 The native layer supplies: a fast bit-exact golden oracle (single- and
 multi-threaded — the reference recomputes every benchmark workload on one
 CPU thread, host_mem.cpp:403-442; ours threads it), lane-layout
-converters, and reference-format instance buffer packers.  Builds on
-demand with ``make`` (g++, -ffp-contract=off); every entry point has a
-NumPy fallback so the package works without a toolchain.
+converters, and reference-format instance buffer packers.  It is built
+from ``plf_tpu/native/plf_native.cpp`` on first use with ``make`` (g++,
+-ffp-contract=off) into ``plf_tpu/native/build/``, which git ignores;
+every entry point has a NumPy fallback so the package works without a
+toolchain.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ from typing import Optional
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "native")
-_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libplf_native.so"))
+_NATIVE_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "native"))
+_LIB_PATH = os.path.join(_NATIVE_DIR, "build", "libplf_native.so")
 
 _lib: Optional[ctypes.CDLL] = None
 _build_attempted = False
@@ -29,29 +32,20 @@ def _f32p(a):
 
 
 def build_native(force: bool = False) -> bool:
-    """Compile libplf_native.so in-tree; returns success.
+    """Compile the library from the committed source; returns success.
 
-    Always invokes ``make`` (a no-op when the .so is newer than the
-    source) so a stale library from an older source revision rebuilds.
+    Always invokes ``make``, which rebuilds when the source is newer
+    than the library (``-B`` with ``force``).
     """
     global _build_attempted
     _build_attempted = True
-    src = os.path.join(os.path.abspath(_NATIVE_DIR), "plf_native.cpp")
-    if not os.path.exists(src):
-        # source pruned (e.g. a binary-only deployment): use the .so
-        # as-is if present rather than crashing on getmtime
-        return os.path.exists(_LIB_PATH)
-    fresh = (os.path.exists(_LIB_PATH) and
-             os.path.getmtime(_LIB_PATH) >= os.path.getmtime(src))
-    if fresh and not force:
-        return True
     try:
-        subprocess.run(["make", "-C", os.path.abspath(_NATIVE_DIR)]
+        subprocess.run(["make", "-C", _NATIVE_DIR]
                        + (["-B"] if force else []),
                        check=True, capture_output=True, timeout=120)
-        return os.path.exists(_LIB_PATH)
     except Exception:
-        return os.path.exists(_LIB_PATH) and fresh
+        return False
+    return os.path.exists(_LIB_PATH)
 
 
 def load_native() -> Optional[ctypes.CDLL]:
@@ -268,7 +262,7 @@ def plf_tree_golden_native(codes, ttab, lsrc, rsrc, oslot, lbr, rbr, ev,
     post-order traversal on the host with the device kernels' exact fp32
     op order (the reference verifies every run against a host recompute,
     app/src/host_mem.cpp:403-442).  Arguments use the UNIFIED register
-    coordinates of ops/plf_tree_pallas.compile_register_schedule (tips
+    coordinates of ops/schedule.compile_register_schedule (tips
     in slots [0, n_leaves)); ``lbr``/``rbr`` are (E, C, S, S) branch
     factors in schedule order, ``ttab`` the (S, ncode) tip table,
     ``rr`` the (S*C,) root-row vector.
@@ -305,13 +299,12 @@ def tree_golden_for_model(pm, threads: Optional[int] = None):
     """Run the whole-tree golden oracle on a PhyloModel's exact inputs.
 
     Returns (site_lik fp32 (n,), scaler_counts int32 (n,)) — directly
-    comparable (bit-exact on TPU) to the fused/dynamic/segmented tree
-    kernels' outputs before the log.
+    comparable to the tree paths' outputs before the log (within a few
+    ULP: device compilers contract multiply-adds into FMAs).
     """
     from ..io.alignment import map_tip_codes, tip_expansion_table
     from ..models.substitution import branch_matrices
-    from ..ops.plf_tree_pallas import (compile_register_schedule,
-                                      reorder_schedule)
+    from ..ops.schedule import compile_register_schedule, reorder_schedule
 
     cfg = pm.config
     S, C = cfg.states, cfg.categories

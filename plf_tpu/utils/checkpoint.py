@@ -4,7 +4,7 @@ The reference has no checkpointing (kernels are stateless per call,
 state lives in host RAM — SURVEY.md §5), so this is new scope enabled by
 HBM residency: a long tree-search / many-traversal job can snapshot its
 device-resident CLV set, scaler totals, and config, and resume after
-preemption — standard practice for TPU production jobs.
+preemption — standard practice for long production jobs.
 
 Format: a single .npz (portable, no framework lock-in) with a manifest.
 """

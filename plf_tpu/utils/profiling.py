@@ -2,14 +2,15 @@
 
 Maps the reference's four tracing mechanisms (SURVEY.md §5: xrt user
 ranges, in-queue phase timestamps, AIE PLIO cycle profiling, xrt.ini
-device traces) onto the TPU stack:
+device traces) onto the JAX stack:
 
 * :func:`trace` — context manager around ``jax.profiler`` producing a
   Perfetto/XPlane trace directory (the device_trace analogue),
 * :class:`PhaseProfiler` — named user ranges with wall-ms accounting
   (the ``xrt::profile::user_range`` analogue, host_mem.cpp:273-282),
 * :func:`throughput_report` — sites/s + GB/s + roofline fraction
-  reporter (the MA/s tables, timing.h:101-151).
+  reporter (the MA/s tables, timing.h:101-151), against the published
+  peaks of :data:`PEAKS`.
 """
 
 from __future__ import annotations
@@ -18,11 +19,34 @@ import contextlib
 import time
 from typing import Dict, Optional
 
-__all__ = ["trace", "PhaseProfiler", "throughput_report",
-           "V5E_HBM_GBPS", "PLF_BYTES_PER_SITE"]
+__all__ = ["trace", "PhaseProfiler", "throughput_report", "PEAKS",
+           "device_peaks", "PLF_BYTES_PER_SITE"]
 
-V5E_HBM_GBPS = 819.0          # nominal v5e HBM bandwidth
 PLF_BYTES_PER_SITE = 196      # 2 CLV reads + 1 write + scaler (BASELINE.md)
+
+#: Published peaks by ``jax.Device.device_kind``: NVIDIA H100 data sheet,
+#: SXM part, dense rates, at the full 700 W power limit.  A card set to a
+#: lower limit reaches less; report the limit beside every share.
+_H100 = {"hbm_gbps": 3350.0, "fp32_tflops": 67.0, "tf32_tflops": 495.0,
+         "bf16_tflops": 989.0}
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": _H100,
+    "NVIDIA H100": _H100,
+}
+
+
+def device_peaks(device_kind: Optional[str] = None) -> Dict[str, float]:
+    """Published peaks of a device kind (default: the first device's).
+    A kind that is not in :data:`PEAKS` is an error, not a default."""
+    if device_kind is None:
+        import jax
+        device_kind = jax.devices()[0].device_kind
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {device_kind!r}; "
+            f"known: {sorted(PEAKS)}") from None
 
 
 @contextlib.contextmanager
@@ -78,9 +102,11 @@ class PhaseProfiler:
 
 def throughput_report(sites: int, seconds: float,
                       bytes_per_site: int = PLF_BYTES_PER_SITE,
-                      hbm_gbps: float = V5E_HBM_GBPS,
+                      device_kind: Optional[str] = None,
                       label: str = "PLF") -> str:
-    """One-line sites/s + bandwidth + roofline summary."""
+    """One-line sites/s + bandwidth + roofline summary against the
+    published HBM rate of ``device_kind`` (default: the first device)."""
+    hbm_gbps = device_peaks(device_kind)["hbm_gbps"]
     sps = sites / seconds
     gbs = sps * bytes_per_site / 1e9
     roof = sps / (hbm_gbps * 1e9 / bytes_per_site)

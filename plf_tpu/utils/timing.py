@@ -1,6 +1,6 @@
 """Timing, bandwidth and throughput reporting.
 
-TPU-native re-design of the reference's measurement layer
+Re-design of the reference's measurement layer
 (app/src/timing.h:9-194): a phase timer that brackets host->HBM transfer,
 device compute, and device->host readback separately (the reference's
 hm/msm/mh split, timing.h:36-63), figure-of-merit converters (MB/s and
@@ -119,7 +119,7 @@ def format_timing_table(d: TimingData, data_bytes: float,
             f"{bandwidth_As(ms, aln) * 1e-6:24.3f} |")
 
     row("Host to device memory:", d.hm())
-    row("Device compute (HBM->VPU->HBM):", d.msm())
+    row("Device compute (HBM->SM->HBM):", d.msm())
     if d.num_calls > 1:
         row("  - slowest call:", d.max_msm(), data_bytes / d.num_calls,
             total_alignments / d.num_calls)

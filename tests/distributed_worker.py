@@ -50,7 +50,7 @@ def main():
     ev = rng.random((4, 4)).astype(np.float32)
     wgt = rng.integers(1, 4, size=n).astype(np.int32)
 
-    sp = ShardedPLF(mesh=mesh, block_sites=128, interpret=True)
+    sp = ShardedPLF(mesh=mesh, block_sites=128)
     x1d = sp.prepare(x1, n)
     x2d = sp.prepare(x2, n)
     lc, rc, ec = sp.constants(left, right, ev)

@@ -63,8 +63,8 @@ def test_codon_tree_likelihood_matches_bruteforce():
 
 
 def test_codon_mxu_kernel_variant_interpret():
-    """The 61-state model through the fused Pallas tree kernel (mxu
-    block-matmul variant, interpret mode) matches the XLA backend."""
+    """The 61-state model through the dot form of the traversal (mxu)
+    matches the element-wise form."""
     tree = random_tree(4, seed=67, mean_branch=0.2)
     m = codon_gy94(kappa=1.5, omega=0.5)
     rng = np.random.default_rng(67)
@@ -76,7 +76,7 @@ def test_codon_mxu_kernel_variant_interpret():
     cfg_p = PLFConfig(states=61, block_sites=128, interpret=True,
                       kernel_variant="mxu")
     ll_p = PhyloModel(tree, m, tips, config=cfg_p
-                      ).log_likelihood(method="fused").log_likelihood
+                      ).log_likelihood(method="per-node").log_likelihood
     assert np.isclose(ll_x, ll_p, rtol=1e-5), (ll_x, ll_p)
 
 

@@ -1,15 +1,16 @@
-"""Fuzzing harness: random configs x {vpu, mxu, xla} vs the golden model.
+"""Fuzzing harness: random configs x {vpu, mxu} x {site-major, padded
+lane-major} vs the golden model.
 
 The reference's correctness bar is exact float equality against the CPU
 plf() on every element of every run (app/src/host_mem.cpp:403-442).  This
 harness sweeps random (states, categories, site-count, block, underflow
-density) configurations and holds every backend to the corresponding bar:
+density) configurations and holds every form of the XLA node op to the
+corresponding bar:
 
-  vpu Pallas  : bit-exact on real TPU; <= 4 ULP here (XLA:CPU
-                interpret mode contracts FMAs)
-  xla stages  : same op order, same <= 4 ULP CPU allowance
-  mxu Pallas  : <= 16 ULP (dot reassociation); scaler flags and weighted
-                scaler increments exact for every backend
+  vpu (element-wise, golden order): <= 4 ULP (the compiler contracts FMAs)
+  mxu (F32_F32_F32 dots)          : <= 16 ULP (dot reassociation)
+
+and scaler flags and weighted scaler increments exact for every form.
 """
 
 import numpy as np
@@ -18,8 +19,7 @@ import pytest
 import jax.numpy as jnp
 
 from plf_tpu.ops import layout as L
-from plf_tpu.ops.plf_pallas import plf_pallas
-from plf_tpu.ops.plf_xla import plf_xla
+from plf_tpu.ops.plf_xla import plf_lane_major, plf_xla
 from plf_tpu.reference import plf_reference
 
 N_CASES = 12
@@ -57,25 +57,18 @@ def test_fuzz_backends_vs_golden(seed):
     g3, gsv, ginc = plf_reference(x1, x2, left, right, ev, wgt,
                                   states=S, categories=C)
 
-    # vpu Pallas (interpret on CPU)
-    v3, vsv, vinc = plf_pallas(x1, x2, left, right, ev, wgt, states=S,
-                               categories=C, block_sites=block,
-                               interpret=True, variant="vpu")
-    v3 = np.asarray(v3)
-    assert np.asarray(vsv).astype(np.uint8).tolist() == gsv.tolist()
-    assert int(vinc) == ginc
-    # Bit-exactness holds on real TPU (verified on hardware by
-    # engine.verify); interpret mode runs through XLA:CPU which contracts
-    # FMAs, so allow a few ULP here.
-    assert _ulp_diff(v3, g3).max() <= 4, (S, C, n)
-
-    # mxu Pallas
-    m3, msv, minc = plf_pallas(x1, x2, left, right, ev, wgt, states=S,
-                               categories=C, block_sites=block,
-                               interpret=True, variant="mxu")
-    assert np.asarray(msv).astype(np.uint8).tolist() == gsv.tolist()
-    assert int(minc) == ginc
-    assert _ulp_diff(np.asarray(m3), g3).max() <= 16, (S, C, n)
+    for variant, ulp in (("vpu", 4), ("mxu", 16)):
+        # lane-major with the sites padded to a block multiple
+        x1l = L.pad_to_multiple(L.to_lane_major(x1, S, C), block)
+        x2l = L.pad_to_multiple(L.to_lane_major(x2, S, C), block)
+        x3l, sc = plf_lane_major(x1l, x2l, left, right, ev, n, states=S,
+                                 categories=C, variant=variant)
+        sc = np.asarray(sc)
+        assert not sc[n:].any()
+        assert sc[:n].astype(np.uint8).tolist() == gsv.tolist()
+        assert int(np.sum(sc[:n] * wgt)) == ginc
+        m3 = L.from_lane_major(np.asarray(x3l), S, C, n=n)
+        assert _ulp_diff(m3, g3).max() <= ulp, (variant, S, C, n)
 
     # XLA stages
     x3, xsv, xinc = plf_xla(jnp.asarray(x1), jnp.asarray(x2),

@@ -247,7 +247,8 @@ def test_finalise_ll_floors_negative_site_likelihoods():
     res = pm._finalise_ll(lik, np.zeros(8, np.int64), 0)
     assert np.all(np.isfinite(res.site_log_likelihood))
     # floor = FLT_MIN (a NORMAL fp32: subnormal floors flush to zero
-    # under TPU/XLA FTZ and reintroduce log(0) = -inf on device paths)
+    # under XLA flush-to-zero and reintroduce log(0) = -inf on device
+    # paths)
     from plf_tpu.models.phylo import LIK_FLOOR
     assert res.site_log_likelihood[1] == res.site_log_likelihood[2] == (
         np.log(LIK_FLOOR))

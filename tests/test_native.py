@@ -154,7 +154,7 @@ def test_tree_golden_oracle_matches_kernels():
     tips[3, ::6] = 4      # IUPAC R
     tips[5, 1::7] = -1    # gap
     pm = PhyloModel(tree, hky85(2.0), tips, alpha=0.5,
-                    config=PLFConfig(block_sites=128))
+                    config=PLFConfig(block_sites=128, interpret=True))
     lik, sc = tree_golden_for_model(pm)
     res = pm.log_likelihood(method="per-node")
     np.testing.assert_array_equal(sc[:n], np.asarray(res.scaler_sites))

@@ -1,21 +1,40 @@
-"""Compute-path tests: XLA path and fused Pallas kernel vs the golden model.
+"""Node-op tests: the XLA PLF (site-major and lane-major) vs the golden model.
 
-The acceptance criterion mirrors the reference host's correctness check:
-exact float equality of every CLV element and of the scaler increments
-(app/src/host_mem.cpp:403-442).  Pallas runs in interpreter mode on CPU
-here (the sw_emu analogue); the same kernel compiles for real TPU.
+The acceptance criterion mirrors the reference host's correctness check
+(app/src/host_mem.cpp:403-442) — every CLV element and the scaler
+increments — with the few-ULP allowance of a compiler that contracts
+mul+add into FMA (conftest.assert_clv_match); scaler counts are exact.
 """
 
+import functools
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from plf_tpu.ops import layout as L
-from plf_tpu.ops.plf_pallas import plf_pallas
-from plf_tpu.ops.plf_xla import plf_xla
+from plf_tpu.ops.plf_xla import DOT_ALGORITHM, plf_lane_major, plf_xla
 from plf_tpu.reference import plf_reference
 from tests.conftest import assert_clv_match, make_random_case
 
-BLOCK = 128  # small Pallas block for cheap CPU interpret tests
+BLOCK = 128  # site padding unit of the lane-major cases
+
+
+def plf_padded(x1, x2, left, right, ev, wgt, states=4, categories=4,
+               variant="vpu"):
+    """Site-major in/out through the lane-major op with the sites padded
+    to a BLOCK multiple (padding must never count a rescale)."""
+    S, C = states, categories
+    n = np.asarray(x1).reshape(-1, C, S).shape[0]
+    x1l = L.pad_to_multiple(L.to_lane_major(np.asarray(x1), S, C), BLOCK)
+    x2l = L.pad_to_multiple(L.to_lane_major(np.asarray(x2), S, C), BLOCK)
+    x3l, sc = plf_lane_major(x1l, x2l, left, right, ev, n, states=S,
+                             categories=C, variant=variant)
+    sv = np.asarray(sc)
+    assert not sv[n:].any(), "padding counted a rescale"
+    return (L.from_lane_major(np.asarray(x3l), S, C, n=n), sv[:n],
+            int(np.sum(sv[:n] * np.asarray(wgt))))
 
 
 def _run_case(case, fn, **kw):
@@ -52,23 +71,6 @@ def test_padding_policy():
     assert L.pad_to_multiple(x, 128).shape == (16, 128)
 
 
-def test_branch_constants_indexing():
-    rng = np.random.default_rng(4)
-    b = rng.random((4, 4, 4), dtype=np.float32)
-    lc = L.branch_to_lane_constants(b)
-    # Lc[k*C + c, a] == b[c, k, a]
-    for c in range(4):
-        for k in range(4):
-            for a in range(4):
-                assert lc[k * 4 + c, a] == b[c, k, a]
-    ev = rng.random((4, 4), dtype=np.float32)
-    ec = L.ev_to_lane_constants(ev)
-    for c in range(4):
-        for k in range(4):
-            for a in range(4):
-                assert ec[a * 4 + c, k] == ev[k, a]
-
-
 # ------------------------------------------------------------------- XLA ---
 
 @pytest.mark.parametrize("n", [64, 333])
@@ -91,15 +93,15 @@ def test_xla_protein_matches_golden():
     assert int(got[2]) == ref[2]
 
 
-# ---------------------------------------------------------------- Pallas ---
+# ----------------------------------------------------------- lane-major ---
 
 @pytest.mark.parametrize("n", [128, 100, 257, 1000])
 def test_pallas_matches_golden_exact(n):
-    """Bit-exact vs golden incl. odd site counts (padding path)."""
+    """The lane-major op vs golden incl. odd site counts (padding path)."""
     rng = np.random.default_rng(11)
     case = make_random_case(rng, n)
     ref = plf_reference(*case)
-    got = _run_case(case, plf_pallas, block_sites=BLOCK, interpret=True)
+    got = _run_case(case, plf_padded)
     assert_clv_match(got[0], ref[0])
     np.testing.assert_array_equal(np.asarray(got[1]),
                                   ref[1].astype(np.int32))
@@ -110,7 +112,7 @@ def test_pallas_no_underflow_case():
     rng = np.random.default_rng(12)
     case = make_random_case(rng, 256, underflow=False)
     ref = plf_reference(*case)
-    got = _run_case(case, plf_pallas, block_sites=BLOCK, interpret=True)
+    got = _run_case(case, plf_padded)
     assert_clv_match(got[0], ref[0])
     assert int(got[2]) == ref[2] == 0
 
@@ -121,7 +123,7 @@ def test_pallas_scaler_excludes_padding():
     rng = np.random.default_rng(13)
     case = make_random_case(rng, 100, underflow=True)
     ref = plf_reference(*case)
-    got = _run_case(case, plf_pallas, block_sites=BLOCK, interpret=True)
+    got = _run_case(case, plf_padded)
     assert int(got[2]) == ref[2]
     assert np.asarray(got[1]).shape == (100,)
 
@@ -130,8 +132,7 @@ def test_pallas_protein_matches_golden():
     rng = np.random.default_rng(14)
     case = make_random_case(rng, 200, states=20)
     ref = plf_reference(*case, states=20)
-    got = _run_case(case, plf_pallas, states=20, block_sites=BLOCK,
-                    interpret=True)
+    got = _run_case(case, plf_padded, states=20)
     assert_clv_match(got[0], ref[0])
     assert int(got[2]) == ref[2]
 
@@ -141,8 +142,7 @@ def test_pallas_weighted_scaler():
     x1, x2, left, right, ev, _ = make_random_case(rng, 256, underflow=True)
     w = rng.integers(1, 7, size=256).astype(np.int32)
     ref = plf_reference(x1, x2, left, right, ev, w)
-    got = plf_pallas(x1, x2, left, right, ev, w, block_sites=BLOCK,
-                     interpret=True)
+    got = plf_padded(x1, x2, left, right, ev, w)
     assert int(got[2]) == ref[2]
 
 
@@ -155,8 +155,7 @@ def test_engine_backends_agree():
     case = make_random_case(rng, 200)
     ref = plf_reference(*case)
     for backend in (Backend.XLA, Backend.PALLAS, Backend.REFERENCE):
-        eng = PLFEngine(PLFConfig(backend=backend, block_sites=BLOCK,
-                                  interpret=True))
+        eng = PLFEngine(PLFConfig(backend=backend, block_sites=BLOCK))
         out = eng.plf(*case)
         assert_clv_match(out.x3, ref[0])
         assert int(out.scaler_increment) == ref[2]
@@ -176,7 +175,7 @@ def test_engine_multi_instance():
     right = np.stack([c[3] for c in cases])
     ev = np.stack([c[4] for c in cases])
     wgt = np.stack([c[5] for c in cases])
-    eng = PLFEngine(PLFConfig(block_sites=BLOCK, interpret=True, instances=I))
+    eng = PLFEngine(PLFConfig(block_sites=BLOCK, instances=I))
     out = eng.plf_batch(x1, x2, left, right, ev, wgt)
     for i, c in enumerate(cases):
         ref = plf_reference(*c)
@@ -186,74 +185,25 @@ def test_engine_multi_instance():
 
 def test_pallas_bf16_fast_mode():
     """bf16 CLV storage: not exact, but within bf16 tolerance of golden."""
-    import jax.numpy as jnp
-    from plf_tpu.ops import layout as L
-    from plf_tpu.ops.plf_pallas import plf_pallas_lane_major
     rng = np.random.default_rng(60)
     case = make_random_case(rng, 256, underflow=False)
     x1, x2, left, right, ev, wgt = case
     ref = plf_reference(*case)
-    x1l = jnp.asarray(L.pad_to_multiple(L.to_lane_major(x1), BLOCK),
-                      jnp.bfloat16)
-    x2l = jnp.asarray(L.pad_to_multiple(L.to_lane_major(x2), BLOCK),
-                      jnp.bfloat16)
-    lc = jnp.asarray(L.branch_to_lane_constants(left))
-    rc = jnp.asarray(L.branch_to_lane_constants(right))
-    ec = jnp.asarray(L.ev_to_lane_constants(ev))
-    x3l, sc = plf_pallas_lane_major(x1l, x2l, lc, rc, ec, 256,
-                                    block_sites=BLOCK, interpret=True)
+    x1l = jnp.asarray(L.to_lane_major(x1), jnp.bfloat16)
+    x2l = jnp.asarray(L.to_lane_major(x2), jnp.bfloat16)
+    x3l, sc = plf_lane_major(x1l, x2l, left, right, ev, 256)
     assert x3l.dtype == jnp.bfloat16
     got = np.asarray(L.from_lane_major(x3l.astype(jnp.float32), n=256))
     np.testing.assert_allclose(got, ref[0], rtol=0.05, atol=0.02)
 
 
-def test_pallas_gen_compute_probe():
-    from plf_tpu.ops import layout as L
-    from plf_tpu.ops.plf_pallas import plf_pallas_gen
-    rng = np.random.default_rng(61)
-    lc = L.branch_to_lane_constants(rng.random((4, 4, 4), np.float32))
-    rc = L.branch_to_lane_constants(rng.random((4, 4, 4), np.float32))
-    ec = L.ev_to_lane_constants(rng.random((4, 4), np.float32))
-    out = plf_pallas_gen(lc, rc, ec, block_sites=128, n_blocks=2,
-                         inner_iters=2, interpret=True)
-    assert out.shape == (1, 256)
-    assert np.isfinite(np.asarray(out)).all()
-
-
-def test_block_matrix_operators():
-    """Block-matrix form reproduces the staged computation exactly in f64."""
-    from plf_tpu.ops import layout as L
-    rng = np.random.default_rng(62)
-    b = rng.random((4, 4, 4), dtype=np.float32)
-    ev = rng.random((4, 4), dtype=np.float32)
-    M = np.asarray(L.branch_to_block_matrix(b))
-    ME = np.asarray(L.ev_to_block_matrix(ev))
-    x = rng.random((16, 10), dtype=np.float32)
-    # stage1: ump[(k,c)] = sum_a b[c,k,a] x[(a,c)]
-    ump = np.zeros((16, 10))
-    for c in range(4):
-        for k in range(4):
-            for a in range(4):
-                ump[k * 4 + c] += b[c, k, a].astype(np.float64) * x[a * 4 + c]
-    np.testing.assert_allclose(M.astype(np.float64) @ x, ump, rtol=1e-6)
-    # stage3: x3[(a,c)] = sum_k ev[k,a] p[(k,c)]
-    p = rng.random((16, 10), dtype=np.float32)
-    x3 = np.zeros((16, 10))
-    for c in range(4):
-        for a in range(4):
-            for k in range(4):
-                x3[a * 4 + c] += ev[k, a].astype(np.float64) * p[k * 4 + c]
-    np.testing.assert_allclose(ME.astype(np.float64) @ p, x3, rtol=1e-6)
-
-
 @pytest.mark.parametrize("n", [256, 333])
 def test_pallas_mxu_variant_matches_golden(n):
-    """MXU block-matmul variant vs golden (ULP tolerance off-TPU)."""
+    """Dot form at F32_F32_F32 vs golden (ULP tolerance)."""
     rng = np.random.default_rng(63)
     case = make_random_case(rng, n)
     ref = plf_reference(*case)
-    got = _run_case(case, plf_pallas, block_sites=BLOCK, interpret=True,
-                    variant="mxu")
+    got = _run_case(case, plf_padded, variant="mxu")
     assert_clv_match(got[0], ref[0], exact=False)
     assert int(got[2]) == ref[2]
 
@@ -262,25 +212,16 @@ def test_pallas_mxu_protein():
     rng = np.random.default_rng(64)
     case = make_random_case(rng, 200, states=20)
     ref = plf_reference(*case, states=20)
-    got = _run_case(case, plf_pallas, states=20, block_sites=BLOCK,
-                    interpret=True, variant="mxu")
+    got = _run_case(case, plf_padded, states=20, variant="mxu")
     assert_clv_match(got[0], ref[0], exact=False)
     assert int(got[2]) == ref[2]
 
 
 @pytest.mark.parametrize("variant", ["mxu_3x", "mxu_bf16"])
 def test_mxu_reduced_precision_variants_run(variant):
-    """Reduced-pass MXU variants vs the exact VPU form.
-
-    mxu_3x's bf16x3 split (plf_pallas._dot_bf16x3) performs its bf16
-    casts explicitly, so even interpret mode exercises the real
-    decomposition -> assert the fp32-grade (~1e-5 rel) bound.  mxu_bf16
-    relies on Precision.DEFAULT, which interpret mode executes as fp32
-    (its true ~4e-3 drift is measured on hardware,
-    benchmarks/protein_tune3.py -> r03_protein.csv)."""
-    from plf_tpu.ops.plf_pallas import plf_pallas
-    import jax.numpy as jnp
-
+    """Reduced-precision dot variants vs the element-wise form, at the
+    class bound of each algorithm (the CPU computes either in fp32; a
+    GPU rounds the operands as the algorithm says)."""
     S, C, n = 20, 4, 300
     rng = np.random.default_rng(11)
     x1 = rng.random((n, C * S), np.float32)
@@ -289,13 +230,35 @@ def test_mxu_reduced_precision_variants_run(variant):
     right = rng.random((C, S, S), np.float32)
     ev = rng.random((S, S), np.float32)
     wgt = np.ones(n, np.int32)
-    x3v, scv, incv = plf_pallas(x1, x2, left, right, ev, wgt, states=S,
-                                categories=C, block_sites=128,
-                                interpret=True, variant="vpu")
-    x3m, scm, incm = plf_pallas(x1, x2, left, right, ev, wgt, states=S,
-                                categories=C, block_sites=128,
-                                interpret=True, variant=variant)
+    x3v, scv, incv = plf_xla(x1, x2, left, right, ev, wgt, states=S,
+                             categories=C, variant="vpu")
+    x3m, scm, incm = plf_xla(x1, x2, left, right, ev, wgt, states=S,
+                             categories=C, variant=variant)
     rtol = 1e-4 if variant == "mxu_3x" else 2e-2
     np.testing.assert_allclose(np.asarray(x3m), np.asarray(x3v),
                                rtol=rtol, atol=1e-4)
     assert int(incm) == int(incv)
+
+
+@pytest.mark.parametrize("variant,preset,operand,passes", [
+    ("mxu", "F32_F32_F32", "f32", 1),
+    ("mxu_3x", "BF16_BF16_F32_X3", "bf16", 3),
+    ("mxu_bf16", "BF16_BF16_F32", "bf16", 1)])
+def test_dot_algorithm_mapping(variant, preset, operand, passes):
+    """Each dot variant names its algorithm, and all three dots of the
+    node carry it (an fp32 dot can never fall to TF32 on a GPU)."""
+    assert DOT_ALGORITHM[variant] is getattr(jax.lax.DotAlgorithmPreset,
+                                             preset)
+    assert "vpu" not in DOT_ALGORITHM
+    S, C, n = 20, 2, 8
+    f = functools.partial(plf_lane_major, states=S, categories=C,
+                          variant=variant)
+    x = jnp.ones((S * C, n))
+    b = jnp.ones((C, S, S))
+    text = jax.jit(f).lower(x, x, b, b, jnp.ones((S, S)), n).as_text()
+    dots = [ln for ln in text.splitlines() if "dot_general" in ln]
+    assert len(dots) == 3
+    want = (f"lhs_precision_type = {operand}, rhs_precision_type = "
+            f"{operand}, accumulation_type = f32")
+    for ln in dots:
+        assert want in ln and f"num_primitive_operations = {passes}" in ln

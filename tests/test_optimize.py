@@ -113,32 +113,3 @@ def test_fit_model_with_alpha():
         pm, steps=40, learning_rate=0.05, fit_alpha=True, alpha_rounds=2)
     assert ll1 > ll0
     assert 0.02 < a_hat < 100.0
-
-
-def test_pallas_backend_matches_xla_backend():
-    """tree_loglik_fn(backend="pallas") — the fused kernel + custom VJP —
-    must agree with the element-wise XLA path in value and gradient."""
-    pm = _phylo(n_leaves=5, n_sites=200, seed=11)
-    fx, t0 = tree_loglik_fn(pm, backend="xla")
-    fp, _ = tree_loglik_fn(pm, backend="pallas")
-    t = jnp.asarray(t0)
-    llx, llp = float(fx(t)), float(fp(t))
-    assert abs(llx - llp) < 1e-3 * abs(llx) + 0.5
-    gx = np.asarray(jax.grad(fx)(t))
-    gp = np.asarray(jax.grad(fp)(t))
-    np.testing.assert_allclose(gp, gx, rtol=0,
-                               atol=1e-4 * max(1.0, np.abs(gx).max()))
-
-
-def test_pallas_backend_with_rates_and_weights():
-    pm = _phylo(n_leaves=4, n_sites=150, seed=12)
-    fx, t0 = tree_loglik_fn(pm, with_weights=True, backend="xla")
-    fp, _ = tree_loglik_fn(pm, with_weights=True, backend="pallas")
-    t = jnp.asarray(t0)
-    r = jnp.asarray(pm.rates, jnp.float32)
-    w = jnp.asarray(pm.rate_weights, jnp.float32)
-    assert abs(float(fx(t, r, w)) - float(fp(t, r, w))) < 0.5
-    gx = np.asarray(jax.grad(fx, argnums=1)(t, r, w))
-    gp = np.asarray(jax.grad(fp, argnums=1)(t, r, w))
-    np.testing.assert_allclose(gp, gx, rtol=0,
-                               atol=1e-4 * max(1.0, np.abs(gx).max()))

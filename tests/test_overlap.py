@@ -1,20 +1,17 @@
-"""Executor-overlap proof (TPU hardware only; skipped on the CPU CI).
+"""Streaming-executor timing modes: the functional contract on the CPU.
 
-The real evidence lives in benchmarks/overlap.py (archived run:
-benchmarks/results/r02_overlap.txt — 18% wall-time win from
-inflight=2 refill-before-drain vs strictly serial, phase-sum > wall).
+Whether transfers overlap compute is a property of the device and is
+not measured here (not measured on a GPU yet).
 """
 
-import jax
 import numpy as np
 import pytest
 
 
 def test_fenced_timing_mode_matches_pipelined():
     """timing_mode='fenced' must produce identical results and record
-    phase timestamps whose per-phase device work is complete (CPU: just
-    the functional contract; the phase-accuracy claim is validated on
-    HW by benchmarks/overlap.py's fenced section)."""
+    phase timestamps whose per-phase device work is complete (the
+    functional contract; phase accuracy needs a device)."""
     from plf_tpu.config import PLFConfig
     from plf_tpu.runtime.executor import StreamingExecutor
 
@@ -23,7 +20,7 @@ def test_fenced_timing_mode_matches_pipelined():
     call = (rng.random((n, 16), np.float32), rng.random((n, 16), np.float32),
             rng.random((4, 4, 4), np.float32), rng.random((4, 4, 4), np.float32),
             rng.random((4, 4), np.float32), None)
-    cfg = PLFConfig(block_sites=128, interpret=True)
+    cfg = PLFConfig(block_sites=128)
     outs = {}
     for mode in ("pipelined", "fenced"):
         ex = StreamingExecutor(cfg, inflight=2, timing_mode=mode)
@@ -40,20 +37,3 @@ def test_fenced_timing_mode_matches_pipelined():
                              timing_mode="fenced").inflight == 1
     with pytest.raises(ValueError):
         StreamingExecutor(cfg, timing_mode="bogus")
-
-
-@pytest.mark.slow
-@pytest.mark.skipif(jax.default_backend() != "tpu",
-                    reason="overlap is only measurable on real hardware")
-def test_streaming_executor_overlaps():
-    import importlib
-    import benchmarks.overlap as ov
-    importlib.reload(ov)
-    import sys
-    argv = sys.argv
-    sys.argv = ["overlap.py", "--calls", "4", "--sites", "131072"]
-    try:
-        overlap = ov.main()
-    finally:
-        sys.argv = argv
-    assert overlap > 0.0, f"no overlap measured ({overlap:.2%})"

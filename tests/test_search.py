@@ -182,23 +182,23 @@ def test_tree_search_checkpoint_resume(tmp_path):
     assert resumed.accepted_moves == full.accepted_moves
 
 
-def test_batch_scoring_falls_back_beyond_arena():
-    """At taxon counts whose register-machine arena cannot fit VMEM at
-    ANY block size, batch_log_likelihood raises and _hill_climb's
-    score_all falls back to per-candidate evaluation (segmented path)
-    instead of crashing."""
+def test_batch_scoring_large_taxa_single_program():
+    """Neighbourhoods of many taxa score in one batched program (the
+    slot arena lives in device memory, so no taxon count is too big for
+    it) and match per-candidate evaluation."""
     from plf_tpu.models.phylo import PhyloModel, batch_log_likelihood
     from plf_tpu.models.search import nni_neighbors
 
-    n_taxa = 1400   # (n_leaves + slots) * 16 rows * 128 * 4B > 10 MiB
+    n_taxa = 300
     tree = random_tree(n_taxa, seed=1)
     tips = np.random.default_rng(2).integers(
         0, 4, size=(n_taxa, 128)).astype(np.int32)
     cfg = PLFConfig(block_sites=128)
     pms = [PhyloModel(t, hky85(2.0), tips, alpha=0.5, config=cfg)
            for t in nni_neighbors(tree)[:2]]
-    with pytest.raises(ValueError, match="does not fit"):
-        batch_log_likelihood(pms)
+    got = batch_log_likelihood(pms)
+    want = [pm.log_likelihood_bruteforce() for pm in pms]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
 @pytest.mark.slow

@@ -1,15 +1,9 @@
-"""MXU precision ladder through the gradient + segmented engines.
+"""Kernel variants (dot algorithms) through the traversal and its gradient.
 
-Round-3 left the whole-tree VJP (ops/plf_tree_grad.py) and the segmented
-engine (ops/plf_tree_seg.py) VPU-only, so S>=20 traversal-at-scale and
-ALL training ran the slow elementwise form while the single-node ladder
-(mxu / mxu_3x / mxu_bf16) was already measured 1.5-4.6x faster for the
-same math.  These tests pin the round-4 plumbing: every variant flows
-through the forward AND checkpointed-backward tree kernels and the
-segmented scan, and gradients match the XLA autodiff oracle — the
-reference's own optimisation story was walking exactly this ladder on
-its fused kernel (/root/reference/aie/src/128x1PLFwindow2in/kernels/
-combine_and_mac_EV.cpp:8,45,78).
+The dot variants ("mxu" = F32_F32_F32, "mxu_3x" = BF16_BF16_F32_X3)
+reach both the forward XLA traversal and its autodiff; values and
+gradients are held against the float64 brute-force oracle
+(conftest.bruteforce_loglik) at each algorithm's accuracy class.
 """
 
 import jax
@@ -21,6 +15,7 @@ from plf_tpu.config import PLFConfig
 from plf_tpu.models import PhyloModel, hky85, random_tree
 from plf_tpu.models.optimize import tree_loglik_fn
 from plf_tpu.models.substitution import random_gtr
+from tests.conftest import bruteforce_loglik, fd_grad
 
 
 def _make_pm(n_leaves=6, n=200, block=128, seed=0, states=4,
@@ -30,48 +25,40 @@ def _make_pm(n_leaves=6, n=200, block=128, seed=0, states=4,
     rng = np.random.default_rng(seed)
     tips = rng.integers(0, states, size=(n_leaves, n))
     cfg = PLFConfig(states=states, categories=categories,
-                    block_sites=block, interpret=True,
-                    kernel_variant=variant)
+                    block_sites=block, kernel_variant=variant)
     return PhyloModel(tree, model, tips, alpha=0.5, config=cfg)
 
 
-def _grads(pm, backend):
-    fn, t0 = tree_loglik_fn(pm, backend=backend)
-    val, g = jax.value_and_grad(fn)(jnp.asarray(t0))
-    return float(val), np.asarray(g)
-
-
-# --------------------------------------------------------------------------
-# make_tree_diff (single-segment whole-tree VJP) with MXU variants
-# --------------------------------------------------------------------------
+def _check_against_oracle(pm, rel, rtol, atol):
+    fn, t0 = tree_loglik_fn(pm)
+    v, g = jax.value_and_grad(fn)(jnp.asarray(t0))
+    f = lambda t: bruteforce_loglik(pm, t)
+    assert float(v) == pytest.approx(f(t0), rel=rel)
+    np.testing.assert_allclose(np.asarray(g), fd_grad(f, t0), rtol=rtol,
+                               atol=atol)
+    return fn
 
 
 @pytest.mark.parametrize("variant", ["mxu", "mxu_3x"])
 def test_tree_backend_mxu_grads_match_xla(variant):
-    pm = _make_pm(variant=variant)
-    v_m, g_m = _grads(pm, "tree")
-    v_x, g_x = _grads(pm, "xla")
-    # mxu (HIGHEST) is ~1 ULP; mxu_3x drops the lo*lo term (~1e-5 rel)
-    rel = 1e-5 if variant == "mxu" else 1e-4
-    assert v_m == pytest.approx(v_x, rel=rel)
-    np.testing.assert_allclose(g_m, g_x, rtol=5e-4, atol=1e-4)
+    """DNA at each dot variant: value and gradient vs the oracle."""
+    fn = _check_against_oracle(_make_pm(variant=variant), 1e-5, 5e-4,
+                               1e-2)
+    assert (fn.engine, fn.variant) == ("xla", variant)
 
 
 def test_tree_backend_mxu_protein_grads():
     pm = _make_pm(n_leaves=5, n=100, states=20, variant="mxu",
                   categories=2)
-    v_m, g_m = _grads(pm, "tree")
-    v_x, g_x = _grads(pm, "xla")
-    assert v_m == pytest.approx(v_x, rel=1e-5)
-    np.testing.assert_allclose(g_m, g_x, rtol=5e-4, atol=1e-4)
+    _check_against_oracle(pm, 1e-5, 5e-4, 1e-2)
 
 
 def test_tree_backend_mxu_underflow_rescale_grads():
     """Deep caterpillar forces 2^32 rescales; the factor is locally
-    constant so MXU-variant gradients must still match the oracle."""
+    constant so dot-variant gradients must still match the oracle."""
     from plf_tpu.models import parse_newick
 
-    n_leaves = 40
+    n_leaves = 24
     newick = "A0:0.1"
     for i in range(1, n_leaves):
         newick = f"({newick},A{i}:0.1):0.1"
@@ -79,66 +66,30 @@ def test_tree_backend_mxu_underflow_rescale_grads():
     rng = np.random.default_rng(7)
     tips = rng.integers(0, 4, size=(n_leaves, 256))
     pm = PhyloModel(tree, hky85(2.0), tips, alpha=0.5,
-                    config=PLFConfig(block_sites=128, interpret=True,
+                    config=PLFConfig(block_sites=128,
                                      kernel_variant="mxu"))
     assert pm.log_likelihood().scaler_total > 0, "case must rescale"
-    v_m, g_m = _grads(pm, "tree")
-    v_x, g_x = _grads(pm, "xla")
-    assert v_m == pytest.approx(v_x, rel=1e-5)
-    np.testing.assert_allclose(g_m, g_x, rtol=5e-4, atol=1e-5)
-
-
-# --------------------------------------------------------------------------
-# Segmented engine with MXU variants (forward + VJP)
-# --------------------------------------------------------------------------
+    _check_against_oracle(pm, 1e-5, 5e-4, 1e-2)
 
 
 @pytest.mark.parametrize("variant", ["mxu", "mxu_3x"])
-def test_segmented_forward_mxu_matches_fused(variant):
-    """Segmented forward at an MXU variant == the fused tree kernel at
-    the same variant (identical op order per node ⇒ same rounding)."""
-    pm = _make_pm(n_leaves=12, n=300, variant=variant, seed=3)
-    seg = pm.log_likelihood_segmented()
-    fused = pm.log_likelihood_fused()
-    assert seg.log_likelihood == pytest.approx(fused.log_likelihood,
-                                               rel=1e-7)
-    assert seg.scaler_total == fused.scaler_total
+def test_dot_variant_forward_matches_elementwise(variant):
+    """The traversal's dot form against its element-wise form (per-site
+    ll, scaler counts equal)."""
+    res = {}
+    for v in ("vpu", variant):
+        res[v] = _make_pm(n_leaves=12, n=300, variant=v,
+                          seed=3).log_likelihood()
+    assert res[variant].scaler_total == res["vpu"].scaler_total
+    np.testing.assert_allclose(res[variant].site_log_likelihood,
+                               res["vpu"].site_log_likelihood,
+                               rtol=1e-5 if variant == "mxu" else 1e-4)
 
 
-def test_segmented_backend_mxu_grads_match_xla():
-    pm = _make_pm(n_leaves=10, n=200, variant="mxu", seed=4)
-    fn_s, t0 = tree_loglik_fn(pm, backend="segmented")
-    v_s, g_s = jax.value_and_grad(fn_s)(jnp.asarray(t0))
-    v_x, g_x = _grads(pm, "xla")
-    assert float(v_s) == pytest.approx(v_x, rel=1e-5)
-    np.testing.assert_allclose(np.asarray(g_s), g_x, rtol=5e-4,
-                               atol=1e-4)
-
-
-def test_segmented_backend_mxu_protein_grads():
+def test_protein_mxu_3x_grads():
     pm = _make_pm(n_leaves=6, n=100, states=20, variant="mxu_3x",
                   categories=2, seed=5)
-    fn_s, t0 = tree_loglik_fn(pm, backend="segmented")
-    v_s, g_s = jax.value_and_grad(fn_s)(jnp.asarray(t0))
-    v_x, g_x = _grads(pm, "xla")
-    assert float(v_s) == pytest.approx(v_x, rel=1e-4)
-    np.testing.assert_allclose(np.asarray(g_s), g_x, rtol=2e-3,
-                               atol=2e-4)
-
-
-def test_auto_routes_mxu_training_to_tree_backends():
-    """auto must not send MXU-variant configs to the VPU-only per-node
-    path (the round-3 gap: protein training ran at VPU speed)."""
-    pm = _make_pm(states=20, variant="mxu", categories=2)
-    # interpret/CPU resolves auto to xla; assert the routing helper
-    # directly instead of the device-dependent entry.
-    from plf_tpu.models.optimize import _tree_backend_block
-    bs = _tree_backend_block(pm)
-    assert bs is not None  # small tree: single-segment backward fits
-    # the MXU operator stacks are counted against VMEM
-    from plf_tpu.ops.plf_tree_grad import tree_bwd_vmem_bytes
-    assert (tree_bwd_vmem_bytes(9, 6, 40, 128, op_width=40)
-            > tree_bwd_vmem_bytes(9, 6, 40, 128))
+    _check_against_oracle(pm, 1e-4, 2e-3, 5e-2)
 
 
 def test_resolved_variant_auto_protein_is_mxu_3x():
@@ -148,57 +99,30 @@ def test_resolved_variant_auto_protein_is_mxu_3x():
                      ).resolved_kernel_variant == "vpu"
 
 
-def test_training_keeps_mxu_3x_no_6pass_override():
-    """Regression: round 5 briefly routed auto S>=20 TRAINING to 6-pass
-    "mxu" based on an order-biased measurement (the fresh-process
-    warm-up transient); the interleaved steady-state protocol showed
-    mxu_3x training is 1.6x FASTER at S=20 and S=61
-    (benchmarks/results/r05_interleave.txt), so auto must stay on the
-    ladder's mxu_3x for the differentiable tree/segmented paths."""
-    pm = _make_pm(n_leaves=6, n=200, states=20, variant="auto",
+def test_training_reports_engine_and_variant():
+    """fn.engine / fn.variant name the path the gradient runs: the XLA
+    traversal, at the configured variant (auto S=20 -> mxu_3x)."""
+    pm = _make_pm(n_leaves=5, n=100, states=20, variant="auto",
                   categories=2)
-    for backend in ("segmented", "tree"):
-        fn, _ = tree_loglik_fn(pm, backend=backend)
-        assert fn.variant == "mxu_3x"
-        assert fn.engine == backend
-
-
-def test_backend_selector_agrees_with_factory():
-    """Regression (round-4 review): _tree_backend_block must size the
-    backward with the same op_width as make_tree_diff's own validation,
-    or auto approves a block the factory then rejects (crash instead of
-    falling back to the segmented backend)."""
-    from plf_tpu.models.optimize import _tree_backend_block
-    from plf_tpu.ops.plf_tree_grad import make_tree_diff
-    from plf_tpu.ops.plf_tree_pallas import reorder_schedule
-
-    pm = _make_pm(n_leaves=126, n=100, states=20, variant="vpu",
-                  categories=4)
-    bs = _tree_backend_block(pm)
-    if bs is not None:
-        sched_r = reorder_schedule(pm.schedule, pm.tree.n_leaves)
-        # must NOT raise: the selector's approval is the factory's bound
-        make_tree_diff(sched_r, pm.tree.n_leaves, states=20,
-                       categories=4, block_sites=bs, interpret=True)
-    # and the segmented fallback always exists for this shape
-    fn, t0 = __import__("plf_tpu.models.optimize",
-                        fromlist=["tree_loglik_fn"]).tree_loglik_fn(
-        pm, backend="segmented")
-    assert np.isfinite(float(fn(jnp.asarray(t0))))
+    fn, _ = tree_loglik_fn(pm)
+    assert (fn.engine, fn.variant) == ("xla", "mxu_3x")
+    pm4 = _make_pm(n_leaves=5, n=100, variant="vpu")
+    fn4, _ = tree_loglik_fn(pm4)
+    assert (fn4.engine, fn4.variant) == ("xla", "vpu")
+    with pytest.raises(ValueError, match="mxu_bf16"):
+        tree_loglik_fn(_make_pm(n_leaves=5, n=100, variant="mxu_bf16"))
 
 
 @pytest.mark.slow
 def test_mxu3x_accuracy_depth_ladder():
-    """mxu_3x error does NOT compound with tree depth: ll drift vs the
-    exact VPU anchor stays ~1e-5-class from 8 to 256 taxa (per-site
-    rounding averages out), and segmented-VJP gradient drift stays in
-    the 1e-3..1e-2 class — the measured basis for mxu_3x being the
-    S>=20 default (auto policy, config.resolved_kernel_variant)."""
-    import jax
-    import jax.numpy as jnp
-
-    from plf_tpu.models import PhyloModel, random_tree
-    from plf_tpu.models.optimize import tree_loglik_fn
+    """mxu_3x error does not compound with tree depth: ll drift against
+    the element-wise (vpu) traversal stays ~1e-5-class from 8 to 256
+    taxa (per-site rounding averages out), and the autodiff gradient
+    drift at 256 taxa against the full-fp32 dots (mxu) stays in the
+    1e-3..1e-2 class: the basis for mxu_3x being the S>=20 default
+    (config.resolved_kernel_variant).  The gradient's anchor is mxu, not
+    vpu: the element-wise S=20 form unrolls 3 x 20 stages per node, and
+    its 256-taxon gradient takes over ten minutes to compile here."""
     from plf_tpu.models.substitution import empirical_protein
 
     lg = empirical_protein("lg")
@@ -213,18 +137,18 @@ def test_mxu3x_accuracy_depth_ladder():
                             kernel_variant=v)
             pm = PhyloModel(tree, lg, tips, alpha=0.8, config=cfg)
             lls[v] = pm.log_likelihood(
-                method="segmented").log_likelihood
+                method="per-node").log_likelihood
         drift = abs(lls["mxu_3x"] - lls["vpu"]) / abs(lls["vpu"])
         assert drift < bound, (n_taxa, drift)
     # gradient drift at full depth (256 taxa) stays bounded
     tree = random_tree(256, seed=7, mean_branch=0.12)
     tips = np.random.default_rng(1).integers(0, 20, size=(256, 256))
     g = {}
-    for v in ("vpu", "mxu_3x"):
+    for v in ("mxu", "mxu_3x"):
         cfg = PLFConfig(states=20, block_sites=128, kernel_variant=v)
         pm = PhyloModel(tree, lg, tips, alpha=0.8, config=cfg)
-        fn, t0 = tree_loglik_fn(pm, backend="segmented")
+        fn, t0 = tree_loglik_fn(pm)
         _, g[v] = jax.value_and_grad(fn)(jnp.asarray(t0))
-    rms = float(jnp.linalg.norm(g["mxu_3x"] - g["vpu"])
-                / jnp.linalg.norm(g["vpu"]))
+    rms = float(jnp.linalg.norm(g["mxu_3x"] - g["mxu"])
+                / jnp.linalg.norm(g["mxu"]))
     assert rms < 2e-2, rms
